@@ -1,0 +1,410 @@
+"""Drive the PyTorch/CUDA port of FOLD on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero and prints no result):
+  0. build  — compile every CUDA kernel from src/repro_torch/kernels/csrc
+  1. kernels — each kernel at the main path's shapes (and a ragged one)
+     against its plain PyTorch version on the card; a kernel's time is its
+     device time in a torch.profiler trace, the plain version's from CUDA
+     events around back-to-back calls
+  2. parity — FoldPipeline on cuda and on cpu over the same batches must
+     give identical keep masks and index states (default config, and the
+     Fig. 8 NO CACHE arm, which is the path that runs kernel K3)
+  3. pipeline — FoldConfig() defaults at capacity 2**20 over 32 Common Crawl
+     preset batches of 512 docs: docs/s and per-stage medians (the main path: K1, K2)
+  4. hamming — ops.hamming, the only entry point of kernel K4
+Launch counts are reset just before each path is driven and read just
+after; the comparison launches of phase 1 are not counted.
+
+Prints one JSON line of per-kernel results, the card's name and power
+limit, and last `{"ok": true, "device": {...}}`.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+PROFILE_DIR = os.path.join(ROOT, "build", "profile")
+
+# phase 3: batches of 512 docs fed at capacity 2**20
+PIPE_BATCHES = 32
+
+# published H100 SXM peaks (NVIDIA data sheet) used for the bounds
+HBM_BYTES_PER_S = 3.35e12
+# 32-bit integer ALU ops: a quarter of the 67 TFLOP/s float32 figure
+# (64 INT32 lanes per SM per clock instead of 128 FP32 lanes, no FMA pair)
+INT32_OPS_PER_S = 67e12 / 4
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def gpu_name_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def trace_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time of `kernel` per call of `fn`, from the kernel
+    events of a torch.profiler trace of `reps` calls: the kernel body
+    alone, not the host's cost of issuing it. Fails unless the trace holds
+    exactly one such kernel per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    tag = kernel.replace("<", "_").replace(">", "")
+    path = os.path.join(PROFILE_DIR, f"kernel_{tag}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    durs = [e["dur"] for e in kernels if kernel in e.get("name", "")]
+    if len(durs) != reps:
+        seen = sorted({e.get("name", "")[:60] for e in kernels})
+        fail(f"trace holds {len(durs)} {kernel} events for {reps} calls; "
+             f"kernels seen: {seen}")
+    return sum(durs) / reps / 1e3
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def u32_max_err(a, b) -> int:
+    from repro_torch.core.hashing import u32
+    return int((u32(a) - u32(b)).abs().max()) if a.numel() else 0
+
+
+def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
+    """Each kernel vs its plain version; returns per-kernel records."""
+    import torch
+
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core.hashing import hash_seeds
+    from repro_torch.core.shingle import shingle_hashes
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitmap_jaccard import (bitmap_jaccard_matrix,
+                                                    hamming_matrix)
+    from repro_torch.kernels.minhash import minhash_kernel_signatures
+
+    tokens, lengths = corpus_batch                    # 512 docs, L = 384
+    sh = shingle_hashes(torch.from_numpy(tokens.view(np.int32)).to(dev),
+                        torch.from_numpy(lengths).to(dev), 5)
+    seeds = hash_seeds(112, device=dev)
+    B, L = sh.shape
+    H = seeds.shape[0]
+    recs = []
+
+    # K1 at the main path's shape (B=512, L=384, H=112)
+    out = minhash_kernel_signatures(sh, seeds)
+    torch.cuda.synchronize()
+    exp = ref.minhash_ref(sh, seeds)
+    err = u32_max_err(out, exp)
+    n_valid = int((sh != -1).sum())
+    b_ms, b_by = bound(B * L * 4 + H * 4 + B * H * 4, 12 * n_valid * H)
+    recs.append(dict(
+        name="minhash", route="cuda",
+        source="src/repro_torch/kernels/csrc/minhash.cu",
+        replaces="src/repro/kernels/minhash.py:47",
+        shape=f"B={B} L={L} H={H}", max_abs_err=err,
+        ms=trace_ms(lambda: minhash_kernel_signatures(sh, seeds), 50,
+                    "minhash_kernel"),
+        call_ms=cuda_ms(lambda: minhash_kernel_signatures(sh, seeds), 50),
+        plain_ms=cuda_ms(lambda: ref.minhash_ref(sh, seeds), 5, 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    sigs = out
+
+    bitmaps = bm.pack_bitmaps(sigs, T=4096)
+    pcs = bm.popcount(bitmaps)
+    Q = N = bitmaps.shape[0]
+    W = bitmaps.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    rag_q = torch.randint(-2**31, 2**31, (13, W), generator=g,
+                          dtype=torch.int64).to(torch.int32).to(dev)
+    rag_d = torch.randint(-2**31, 2**31, (201, W), generator=g,
+                          dtype=torch.int64).to(torch.int32).to(dev)
+
+    def f32_err(a, b) -> float:
+        if a.shape != b.shape:
+            return float("inf")
+        if torch.equal(a, b) or a.numel() == 0:
+            return 0.0
+        diff = (a - b).abs()
+        return float(torch.nan_to_num(diff, nan=float("inf")).max())
+
+    cases = [
+        ("jaccard_cached", "pair_kernel<0>",
+         "src/repro/kernels/bitmap_jaccard.py:33",
+         lambda q, d: bitmap_jaccard_matrix(q, d, ref.popcount(q),
+                                            ref.popcount(d), cached=True),
+         lambda q, d: ref.bitmap_jaccard_ref(q, d, ref.popcount(q),
+                                             ref.popcount(d)),
+         lambda: bitmap_jaccard_matrix(bitmaps, bitmaps, pcs, pcs, cached=True),
+         lambda: ref.bitmap_jaccard_ref(bitmaps, bitmaps, pcs, pcs),
+         (2 * Q * W * 4 + 2 * Q * 4 + Q * N * 4, 3 * Q * N * W + 6 * Q * N)),
+        ("jaccard_nocache", "pair_kernel<1>",
+         "src/repro/kernels/bitmap_jaccard.py:46",
+         lambda q, d: bitmap_jaccard_matrix(q, d, cached=False),
+         lambda q, d: ref.bitmap_jaccard_ref(q, d),
+         lambda: bitmap_jaccard_matrix(bitmaps, bitmaps, cached=False),
+         lambda: ref.bitmap_jaccard_ref(bitmaps, bitmaps),
+         (2 * Q * W * 4 + Q * N * 4, 7 * Q * N * W + 6 * Q * N)),
+        ("hamming", "pair_kernel<2>",
+         "src/repro/kernels/bitmap_jaccard.py:60",
+         hamming_matrix, ref.hamming_ref,
+         lambda: hamming_matrix(bitmaps, bitmaps),
+         lambda: ref.hamming_ref(bitmaps, bitmaps),
+         (2 * Q * W * 4 + Q * N * 4, 3 * Q * N * W + 2 * Q * N)),
+    ]
+    for name, symbol, replaces, kern, plain, run_k, run_p, (nbytes, ops) in cases:
+        err = 0.0
+        for q, d in ((bitmaps, bitmaps), (rag_q, rag_d)):
+            got = kern(q, d)
+            torch.cuda.synchronize()
+            err = max(err, f32_err(got, plain(q, d)))
+        b_ms, b_by = bound(nbytes, ops)
+        recs.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/bitmap_jaccard.cu",
+            replaces=replaces, shape=f"Q={Q} N={N} W={W} (+13x201)",
+            max_abs_err=err, ms=trace_ms(run_k, 200, symbol),
+            call_ms=cuda_ms(run_k, 200), plain_ms=cuda_ms(run_p, 10, 2), bound_ms=b_ms, bound_by=b_by,
+            library_ms=None))
+    bad = [r["name"] for r in recs if r["max_abs_err"] != 0]
+    if bad:
+        fail(f"kernels disagree with their plain versions: {bad} {recs}")
+    return recs, {"bitmaps": bitmaps}
+
+
+def states_equal(a, b) -> list:
+    from repro_torch.core.hnsw import state_to_numpy
+    na, nb = state_to_numpy(a), state_to_numpy(b)
+    return [k for k in na if not np.array_equal(na[k], nb[k])]
+
+
+def phase_parity(batches, cached: bool, dev) -> dict:
+    """FoldPipeline on the card vs cpu: identical keep masks and states."""
+    from repro_torch.core.dedup import FoldConfig, FoldPipeline
+    from repro_torch.kernels import _lib
+    cfg = FoldConfig(capacity=16384, cached=cached)
+    gpu = FoldPipeline(cfg, device=dev)
+    cpu = FoldPipeline(cfg, device="cpu")
+    _lib.reset_launches()
+    t_gpu = t_cpu = 0.0
+    kept = 0
+    for i, (tok, ln) in enumerate(batches):
+        t0 = time.perf_counter()
+        kg, _ = gpu.process_batch(tok, ln)
+        t1 = time.perf_counter()
+        kc, _ = cpu.process_batch(tok, ln)
+        t2 = time.perf_counter()
+        t_gpu += t1 - t0
+        t_cpu += t2 - t1
+        if not np.array_equal(kg, kc):
+            fail(f"parity (cached={cached}): keep masks differ at batch {i}")
+        bad = states_equal(gpu.state, cpu.state)
+        if bad:
+            fail(f"parity (cached={cached}): states differ at batch {i}: {bad}")
+        kept += int(kg.sum())
+    launches = dict(_lib.LAUNCHES)
+    log(f"parity cached={cached}: {len(batches)} batches x "
+        f"{len(batches[0][0])} docs at capacity {cfg.capacity}: keep masks "
+        f"and states identical on cuda and cpu; admitted {kept}; "
+        f"cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s; launches {launches}")
+    return launches
+
+
+def phase_pipeline(batches, card: str, dev) -> tuple[dict, dict]:
+    import torch
+
+    from repro_torch.core.dedup import FoldConfig, FoldPipeline
+    from repro_torch.kernels import _lib
+    cfg = FoldConfig(capacity=1 << 20)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = FoldPipeline(cfg, device=dev)
+    stats = []
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tok, ln in batches:
+        keep, st = pipe.process_batch(tok, ln)
+        if keep.shape != (len(tok),) or st["n_overflow"] != 0:
+            fail(f"bad batch result: shape {keep.shape}, stats {st}")
+        stats.append(st)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    if launches["minhash"] == 0 or launches["jaccard_cached"] == 0:
+        fail(f"main path did not launch K1 and K2: {launches}")
+    n_docs = sum(len(t) for t, _ in batches)
+    admitted = stats[-1]["count"]
+    if admitted != sum(s["n_insert"] for s in stats):
+        fail("index count disagrees with the admitted rows")
+    steady = stats[1:]
+    med = {k: statistics.median(s[k] for s in steady)
+           for k in ("t_signature", "t_in_batch", "t_search", "t_insert")}
+    res = dict(batches=len(batches), batch_docs=len(batches[0][0]),
+               capacity=cfg.capacity, docs=n_docs, wall_s=wall,
+               docs_per_s=n_docs / wall,
+               steady_docs_per_s=sum(len(t) for t, _ in batches[1:])
+               / sum(sum(s[k] for k in med) for s in steady),
+               median_stage_s=med, admitted=admitted,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               card=card)
+    log("pipeline " + json.dumps(res))
+    log(f"pipeline: admitted {admitted} of {n_docs} docs into a "
+        f"{cfg.capacity}-slot index (the doc count is cut by the run's "
+        f"time limit, not by the index)")
+    log("profile " + json.dumps(profile_batch(pipe, batches[-1])))
+    return res, launches
+
+
+def profile_batch(pipe, batch) -> dict:
+    """One more batch under torch.profiler (after the timed run): device
+    busy time from the trace's kernel/memcpy/memset events against the
+    wall time, the launch count, and the costliest kernels and runtime
+    calls. The trace goes to build/profile/ and is read back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(PROFILE_DIR, exist_ok=True)
+    path = os.path.join(PROFILE_DIR, "batch_trace.json")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.process_batch(*batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev, runtime = {}, {}
+    for e in events:
+        cat, name, dur = e.get("cat"), e.get("name", ""), e.get("dur", 0)
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            n, t = dev.get(name, (0, 0.0))
+            dev[name] = (n + 1, t + dur)
+        elif cat == "cuda_runtime":
+            n, t = runtime.get(name, (0, 0.0))
+            runtime[name] = (n + 1, t + dur)
+    busy_ms = sum(t for _, t in dev.values()) / 1e3
+
+    def top(d, n):
+        rows = sorted(d.items(), key=lambda kv: -kv[1][1])[:n]
+        return [{"name": k[:80], "count": c, "ms": t / 1e3} for k, (c, t) in rows]
+
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "device_ops": sum(c for c, _ in dev.values()),
+            "top_device": top(dev, 6), "top_runtime": top(runtime, 4)}
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a GPU")
+
+    from repro_torch.data.corpus import DATASET_PRESETS, SyntheticCorpus
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    card = gpu_name_power()
+    log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
+        f"{torch.__version__} cuda {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    _lib.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for src, text in _lib.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"ptxas {src}: {line.strip()}")
+
+    # data: made in bulk before anything is timed
+    corpus = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
+    pipe_batches = [corpus.next_batch(512)[:2] for _ in range(PIPE_BATCHES)]
+    par_corpus = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
+    par_batches = [par_corpus.next_batch(256)[:2] for _ in range(4)]
+
+    tok, ln = pipe_batches[0]
+    padded = np.zeros((tok.shape[0], 384), np.uint32)
+    padded[:, :tok.shape[1]] = tok
+    recs, extra = phase_kernels(dev, (padded, ln))
+    log("kernel checks: all four equal their plain versions (max error 0)")
+
+    launches = {}
+    launches["jaccard_nocache"] = phase_parity(par_batches, False, dev)
+    phase_parity(par_batches, True, dev)
+    res, main_launches = phase_pipeline(pipe_batches, card, dev)
+    launches["minhash"] = launches["jaccard_cached"] = main_launches
+
+    from repro_torch.kernels import ops
+    bitmaps = extra["bitmaps"]
+    _lib.reset_launches()
+    sim = ops.hamming(bitmaps, bitmaps)
+    torch.cuda.synchronize()
+    launches["hamming"] = dict(_lib.LAUNCHES)
+    if sim.shape != (bitmaps.shape[0],) * 2 or not torch.isfinite(sim).all():
+        fail("ops.hamming gave a bad matrix")
+
+    paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
+             "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
+             "jaccard_nocache": "FoldPipeline(FoldConfig(cached=False)).process_batch",
+             "hamming": "ops.hamming"}
+    for r in recs:
+        r["launches"] = launches[r["name"]][r["name"]]
+        r["path"] = paths[r["name"]]
+        if r["launches"] <= 0:
+            fail(f"kernel {r['name']} was not launched on its path")
+    log(json.dumps({"kernels": recs, "card": card}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

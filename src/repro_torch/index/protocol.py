@@ -1,0 +1,105 @@
+"""The pluggable dedup-backend API (port of `repro/index/protocol.py`).
+
+The admission loop is ① signature generation → ② in-batch cleanup →
+③ index search → ④ threshold filter → ⑤ admit uniques; steps ①②④ are
+shared (`index.pipeline.DedupPipeline`), a backend supplies ③ and ⑤ over
+one signature representation plus the capacity lifecycle. Arrays are
+torch tensors on the backend's device.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Protocol, runtime_checkable
+
+__all__ = ["SigSpec", "SigBatch", "StepResult", "DedupBackend", "BATCH_FIRST"]
+
+# Admission-loop ordering of FOLD and every sketch baseline: the in-batch
+# greedy-leader sweep first, then the index filter over the searches.
+BATCH_FIRST = "batch_first"
+
+
+class SigSpec(NamedTuple):
+    """What step ① must produce for a backend. needs ⊆ {"sigs", "bitmaps",
+    "shingles"}: (B, H) MinHash lanes, (B, T//32) packed bitmaps (+
+    popcounts), (B, S) raw shingle hashes."""
+    num_hashes: int = 112
+    shingle_n: int = 5
+    T: int = 4096
+    seed: int = 0
+    use_kernel: bool = True
+    needs: frozenset = frozenset({"sigs"})
+
+
+class SigBatch(NamedTuple):
+    """Step-① output for one batch; fields not asked for are None."""
+    sigs: Any = None
+    bitmaps: Any = None
+    pcs: Any = None
+    shingles: Any = None
+
+    @property
+    def n_docs(self) -> int:
+        for a in self:
+            if a is not None:
+                return a.shape[0]
+        raise ValueError("empty SigBatch")
+
+
+class StepResult(NamedTuple):
+    """Outcome of one dedup_step, as device tensors.
+
+    keep (B,) bool admit mask; keep_in_batch (B,) bool step-② survivors;
+    ids (B, k) int32 neighbor ids (-1 = none); sims (B, k) f32."""
+    keep: Any
+    keep_in_batch: Any
+    ids: Any
+    sims: Any
+
+
+@runtime_checkable
+class DedupBackend(Protocol):
+    """Steps ③+⑤ plus the index lifecycle, over one SigBatch
+    representation (see the reference protocol for the full contract).
+
+      name, order, sig_spec, tau_batch, tau_index, capacity, inserted
+      device                          the torch device of its state
+      batch_sim(sig) -> (B, B)        step-② similarity matrix
+      search(sig) -> (ids, sims)      step ③ against the pre-batch corpus
+      insert(sig, keep, search_ids=None)
+                                      step ⑤; search_ids are advisory
+                                      discovery seeds. OVERFLOW CONTRACT:
+                                      never silently drop a keep-row —
+                                      refuse the batch instead.
+      grow(new_capacity)              re-allocate, graph kept exactly
+      stats_schema() / stats()
+    """
+    name: str
+    order: str
+
+    supports_growth: bool = True
+    supports_snapshots: bool = True
+    supports_deletion: bool = False
+    track_slots: bool = False
+
+    @property
+    def sig_spec(self) -> SigSpec: ...
+    @property
+    def tau_batch(self) -> float: ...
+    @property
+    def tau_index(self) -> float: ...
+    @property
+    def capacity(self) -> int: ...
+    @property
+    def inserted(self) -> int: ...
+
+    def batch_sim(self, sig: SigBatch) -> Any: ...
+    def search(self, sig: SigBatch) -> tuple[Any, Any]: ...
+    def insert(self, sig: SigBatch, keep: Any,
+               search_ids: Any | None = None) -> Any: ...
+    def grow(self, new_capacity: int) -> None: ...
+    def stats_schema(self) -> tuple[str, ...]: ...
+    def stats(self) -> dict: ...
+
+    def delete(self, ids: Any) -> int:
+        raise NotImplementedError(
+            f"backend {getattr(self, 'name', type(self).__name__)!r}: "
+            f"delete is not ported yet (supports_deletion=False)")

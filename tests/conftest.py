@@ -15,3 +15,8 @@ try:
     import hypothesis  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "_vendor"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason without one")

@@ -1,0 +1,127 @@
+"""The port's plain kernel versions held against the JAX Pallas kernels (in
+interpret mode) and against `repro.kernels.ref`, over the shape sweeps of
+tests/test_kernels.py, and the dispatch rules of `repro_torch.kernels.ops`.
+The CUDA kernels themselves are tested in tests/test_torch_cuda.py.
+
+All outputs must match exactly: u32 bit for bit, f32 with
+assert_array_equal (the formulas are the same, and every division is
+IEEE-rounded on both sides)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core.hashing import hash_seeds as j_hash_seeds
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _lib, ops, ref
+from repro_torch.kernels.bitmap_jaccard import bitmap_jaccard_matrix, hamming_matrix
+from repro_torch.kernels.minhash import minhash_kernel_signatures
+
+# small tensors: one intra-op thread per test worker avoids oversubscribing
+# the cores the parallel test workers share
+torch.set_num_threads(1)
+
+JACCARD_SHAPES = [(1, 1, 4), (8, 128, 128), (13, 201, 128), (5, 7, 64),
+                  (128, 256, 32), (3, 130, 16)]
+HAMMING_SHAPES = [(8, 128, 128), (9, 33, 16), (1, 1, 4)]
+MINHASH_SHAPES = [(1, 4, 7), (5, 300, 112), (16, 128, 128), (9, 513, 64),
+                  (2, 16, 1)]
+
+
+def to_t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy())
+
+
+def words(rng, shape) -> np.ndarray:
+    return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("q,n,w", JACCARD_SHAPES)
+@pytest.mark.parametrize("cached", [True, False])
+def test_bitmap_jaccard_plain_matches_pallas_and_ref(q, n, w, cached):
+    rng = np.random.default_rng(q * 1000 + n + w)
+    qs, db = words(rng, (q, w)), words(rng, (n, w))
+    pallas = np.asarray(jops.bitmap_jaccard(jnp.asarray(qs), jnp.asarray(db),
+                                            cached=cached, interpret=True))
+    jplain = np.asarray(jref.bitmap_jaccard_ref(jnp.asarray(qs), jnp.asarray(db)))
+    got = ops.bitmap_jaccard(to_t(qs), to_t(db), cached=cached)
+    assert got.dtype == torch.float32 and got.shape == (q, n)
+    np.testing.assert_array_equal(got.numpy(), pallas)
+    np.testing.assert_array_equal(got.numpy(), jplain)
+    np.testing.assert_array_equal(
+        ops.bitmap_jaccard(to_t(qs), to_t(db), cached=cached,
+                           use_kernel=False).numpy(), jplain)
+
+
+def test_bitmap_jaccard_sparse_and_empty():
+    qs = torch.zeros((4, 16), dtype=torch.int32)
+    db = torch.zeros((6, 16), dtype=torch.int32)
+    assert (ops.bitmap_jaccard(qs, db) == 1.0).all()
+    a = torch.tensor([[0b1010, 0, 0, 0]], dtype=torch.int32)
+    b = torch.tensor([[0b0101, 0, 0, 0]], dtype=torch.int32)
+    assert ops.bitmap_jaccard(a, a)[0, 0] == 1.0
+    assert ops.bitmap_jaccard(a, b)[0, 0] == 0.0
+
+
+@pytest.mark.parametrize("q,n,w", HAMMING_SHAPES)
+def test_hamming_plain_matches_pallas_and_ref(q, n, w):
+    rng = np.random.default_rng(q + n * 7 + w)
+    qs, db = words(rng, (q, w)), words(rng, (n, w))
+    pallas = np.asarray(jops.hamming(jnp.asarray(qs), jnp.asarray(db),
+                                     interpret=True))
+    jplain = np.asarray(jref.hamming_ref(jnp.asarray(qs), jnp.asarray(db)))
+    got = ops.hamming(to_t(qs), to_t(db)).numpy()
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, jplain)
+
+
+@pytest.mark.parametrize("b,l,h", MINHASH_SHAPES)
+def test_minhash_plain_matches_pallas_and_ref(b, l, h):
+    rng = np.random.default_rng(b * 100 + l + h)
+    sh = words(rng, (b, l))
+    sh[0, l // 2:] = 0xFFFFFFFF
+    seeds = np.asarray(j_hash_seeds(h))
+    pallas = np.asarray(jops.minhash(jnp.asarray(sh), jnp.asarray(seeds),
+                                     interpret=True))
+    jplain = np.asarray(jref.minhash_ref(jnp.asarray(sh), jnp.asarray(seeds)))
+    got = ops.minhash(to_t(sh), to_t(seeds))
+    assert got.dtype == torch.int32 and got.shape == (b, h)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), pallas)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), jplain)
+
+
+def test_minhash_all_padded_row():
+    sh = torch.full((3, 32), -1, dtype=torch.int32)
+    seeds = to_t(np.asarray(j_hash_seeds(8)))
+    assert (ops.minhash(sh, seeds) == -1).all()     # 0xFFFFFFFF sentinel
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rank", "contiguity", "device"])
+def test_wrappers_refuse_bad_inputs(bad):
+    qs = torch.zeros((4, 8), dtype=torch.int32)
+    if bad == "dtype":
+        qs = qs.to(torch.int64)
+    elif bad == "rank":
+        qs = qs[None]
+    elif bad == "contiguity":
+        qs = torch.zeros((8, 4), dtype=torch.int32).T
+    elif bad == "device":
+        qs = qs.to("meta")       # neither CPU nor CUDA: no plain fallback
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "device":
+            hamming_matrix(qs, qs)
+        else:
+            bitmap_jaccard_matrix(qs, qs)
+    with pytest.raises((TypeError, ValueError)):
+        minhash_kernel_signatures(qs, torch.zeros(3, dtype=torch.int32))
+
+
+def test_cpu_tensors_launch_nothing():
+    _lib.reset_launches()
+    x = torch.zeros((3, 4), dtype=torch.int32)
+    ops.bitmap_jaccard(x, x)
+    ops.bitmap_jaccard(x, x, cached=False)
+    ops.hamming(x, x)
+    ops.minhash(x, torch.zeros(2, dtype=torch.int32))
+    assert all(v == 0 for v in _lib.LAUNCHES.values())

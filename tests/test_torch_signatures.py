@@ -1,0 +1,125 @@
+"""Step ① of the PyTorch port held bit-exact against the JAX package:
+seeds, shingles, MinHash, bitmaps and popcounts, and fold_signatures on
+every corpus preset (short docs and all-padding rows included)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import bitmap as jbm
+from repro.core import dedup as jdedup
+from repro.core.hashing import hash_seeds as j_hash_seeds
+from repro.core.minhash import minhash_from_shingles as j_minhash
+from repro.core.shingle import shingle_hashes as j_shingles
+from repro.data.corpus import DATASET_PRESETS, SyntheticCorpus
+from repro_torch.core import bitmap as tbm
+from repro_torch.core import dedup as tdedup
+from repro_torch.core.hashing import hash_seeds as t_hash_seeds
+from repro_torch.core.minhash import minhash_from_shingles as t_minhash
+from repro_torch.core.shingle import shingle_hashes as t_shingles
+
+# small tensors: one intra-op thread per test worker avoids oversubscribing
+# the cores the parallel test workers share
+torch.set_num_threads(1)
+
+
+def to_t(a: np.ndarray) -> torch.Tensor:
+    """uint32 numpy -> int32-bit torch (the port's representation)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.copy())
+
+
+def u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _docs(rng, B=9, L=40, vocab=2**32):
+    tokens = rng.integers(0, vocab, (B, L), dtype=np.uint64).astype(np.uint32)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[0] = 0          # all-padding row: keeps 0xFFFFFFFF
+    lengths[1] = 3          # shorter than shingle_n
+    lengths[2] = L
+    return tokens, lengths
+
+
+@pytest.mark.parametrize("num,base", [(1, 0), (112, 0x5EED), (300, 7),
+                                      (16, 2**32 - 1)])
+def test_hash_seeds_bit_exact(num, base):
+    np.testing.assert_array_equal(u32(t_hash_seeds(num, base, device="cpu")),
+                                  np.asarray(j_hash_seeds(num, base)))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 9])
+def test_shingle_hashes_bit_exact(n):
+    tokens, lengths = _docs(np.random.default_rng(n))
+    exp = np.asarray(j_shingles(jnp.asarray(tokens), jnp.asarray(lengths), n))
+    got = u32(t_shingles(to_t(tokens), torch.from_numpy(lengths), n))
+    np.testing.assert_array_equal(got, exp)
+    assert (got[0] == 0xFFFFFFFF).all()
+
+
+@pytest.mark.parametrize("h", [1, 7, 112])
+def test_minhash_from_shingles_bit_exact(h):
+    tokens, lengths = _docs(np.random.default_rng(h), B=11, L=64)
+    sh = np.asarray(j_shingles(jnp.asarray(tokens), jnp.asarray(lengths), 5))
+    seeds = np.asarray(j_hash_seeds(h))
+    exp = np.asarray(j_minhash(jnp.asarray(sh), jnp.asarray(seeds)))
+    got = u32(t_minhash(to_t(sh), to_t(seeds)))
+    np.testing.assert_array_equal(got, exp)
+    assert (got[0] == 0xFFFFFFFF).all()     # empty doc keeps the sentinel
+
+
+@pytest.mark.parametrize("T", [32, 1024, 4096])
+def test_pack_bitmaps_and_popcount_bit_exact(T):
+    rng = np.random.default_rng(T)
+    sigs = rng.integers(0, 2**32, (17, 112), dtype=np.uint64).astype(np.uint32)
+    sigs[3] = 0xFFFFFFFF                     # unsigned `% T` on the sentinel
+    sigs[4, :56] = sigs[4, 56:]              # colliding lanes
+    exp = np.asarray(jbm.pack_bitmaps(jnp.asarray(sigs), T=T))
+    got = tbm.pack_bitmaps(to_t(sigs), T=T)
+    np.testing.assert_array_equal(u32(got), exp)
+    np.testing.assert_array_equal(tbm.popcount(got).numpy(),
+                                  np.asarray(jbm.popcount(jnp.asarray(exp))))
+
+
+def test_pairwise_similarities_match():
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 2**32, (7, 16), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2**32, (11, 16), dtype=np.uint64).astype(np.uint32)
+    a[0] = 0
+    b[0] = 0                                  # empty vs empty -> 1.0
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    ta, tb = to_t(a), to_t(b)
+    pairs = [
+        (jbm.pairwise_bitmap_jaccard(ja, jb), tbm.pairwise_bitmap_jaccard(ta, tb)),
+        (jbm.chunked_pairwise_bitmap_jaccard(ja, jb, row_chunk=4, col_chunk=3),
+         tbm.chunked_pairwise_bitmap_jaccard(ta, tb, row_chunk=4, col_chunk=3)),
+        (jbm.pairwise_hamming(ja, jb), tbm.pairwise_hamming(ta, tb)),
+        (jbm.pairwise_minhash_jaccard(ja, jb), tbm.pairwise_minhash_jaccard(ta, tb)),
+        (jbm.bitmap_jaccard_sim(ja, ja[::-1]), tbm.bitmap_jaccard_sim(ta, ta.flip(0))),
+        (jbm.hamming_sim(ja, ja[::-1]), tbm.hamming_sim(ta, ta.flip(0))),
+        (jbm.minhash_jaccard_sim(ja, ja[::-1]), tbm.minhash_jaccard_sim(ta, ta.flip(0))),
+    ]
+    for exp, got in pairs:
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+
+@pytest.mark.parametrize("preset", sorted(DATASET_PRESETS))
+def test_fold_signatures_bit_exact_on_every_preset(preset):
+    tokens, lengths, _ = SyntheticCorpus(DATASET_PRESETS[preset]).next_batch(24)
+    lengths[0] = 0                            # all-padding row
+    lengths[1] = 2                            # shorter than shingle_n
+    jcfg = jdedup.FoldConfig(use_kernel=False)
+    tcfg = tdedup.FoldConfig()
+    jsig, jbmp, jpcs = jdedup.fold_signatures(
+        jcfg, j_hash_seeds(jcfg.num_hashes), tokens, lengths)
+    tsig, tbmp, tpcs = tdedup.fold_signatures(
+        tcfg, t_hash_seeds(tcfg.num_hashes, device="cpu"), to_t(tokens),
+        torch.from_numpy(lengths))
+    np.testing.assert_array_equal(u32(tsig), np.asarray(jsig))
+    np.testing.assert_array_equal(u32(tbmp), np.asarray(jbmp))
+    np.testing.assert_array_equal(tpcs.numpy(), np.asarray(jpcs))
+    assert (u32(tsig)[0] == 0xFFFFFFFF).all()
