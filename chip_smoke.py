@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result):
   0. build  — compile every CUDA kernel from src/repro_torch/kernels/csrc
-  1. kernels — each kernel at the main path's shapes (and a ragged one)
+  1. kernels — each kernel at the main path's shapes (and ragged ones)
      against its plain PyTorch version on the card; a kernel's time is its
      device time in a torch.profiler trace, the plain version's from CUDA
      events around back-to-back calls
@@ -43,6 +43,9 @@ HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer ALU ops: a quarter of the 67 TFLOP/s float32 figure
 # (64 INT32 lanes per SM per clock instead of 128 FP32 lanes, no FMA pair)
 INT32_OPS_PER_S = 67e12 / 4
+# population count issues at 16 per SM per clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0)
+POPC_PER_SM_CLOCK = 16
 
 
 def log(msg: str) -> None:
@@ -54,13 +57,27 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def gpu_name_power() -> str:
+def nvidia_smi(query: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_name_power() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def popc_floor_ms(n_popc: float) -> float:
+    """Least time for n_popc population counts at the card's SM count and
+    maximum SM clock: the floor of any design that counts bits on the
+    integer units."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return n_popc / (sms * POPC_PER_SM_CLOCK * mhz * 1e6) * 1e3
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -132,6 +149,12 @@ def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
     from repro_torch.kernels.minhash import minhash_kernel_signatures
 
     tokens, lengths = corpus_batch                    # 512 docs, L = 384
+    g = torch.Generator(device="cpu").manual_seed(0)
+
+    def rand_words(*shape):
+        return torch.randint(-2**31, 2**31, shape, generator=g,
+                             dtype=torch.int64).to(torch.int32).to(dev)
+
     sh = shingle_hashes(torch.from_numpy(tokens.view(np.int32)).to(dev),
                         torch.from_numpy(lengths).to(dev), 5)
     seeds = hash_seeds(112, device=dev)
@@ -139,18 +162,30 @@ def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
     H = seeds.shape[0]
     recs = []
 
-    # K1 at the main path's shape (B=512, L=384, H=112)
+    # K1 at the main path's shape (B=512, L=384, H=112), and ragged: B off
+    # the block count, L over one staged tile, H off the lane layout,
+    # padding inside rows, rows with no and with one valid shingle
     out = minhash_kernel_signatures(sh, seeds)
     torch.cuda.synchronize()
-    exp = ref.minhash_ref(sh, seeds)
-    err = u32_max_err(out, exp)
+    err = u32_max_err(out, ref.minhash_ref(sh, seeds))
+    rag = rand_words(7, 1500)
+    rag[:, ::3] = -1
+    rag[1] = -1
+    rag[2] = -1
+    rag[2, 700] = 12345
+    for r_sh, r_h in ((rag, 31), (rag, 112), (sh[:, 100:300].contiguous(), 1)):
+        r_seeds = hash_seeds(r_h, device=dev)
+        got = minhash_kernel_signatures(r_sh, r_seeds)
+        torch.cuda.synchronize()
+        err = max(err, u32_max_err(got, ref.minhash_ref(r_sh, r_seeds)))
     n_valid = int((sh != -1).sum())
     b_ms, b_by = bound(B * L * 4 + H * 4 + B * H * 4, 12 * n_valid * H)
     recs.append(dict(
         name="minhash", route="cuda",
         source="src/repro_torch/kernels/csrc/minhash.cu",
         replaces="src/repro/kernels/minhash.py:47",
-        shape=f"B={B} L={L} H={H}", max_abs_err=err,
+        shape=f"B={B} L={L} H={H} (+7x1500 H=31,112; {B}x200 H=1)",
+        max_abs_err=err,
         ms=trace_ms(lambda: minhash_kernel_signatures(sh, seeds), 50,
                     "minhash_kernel"),
         call_ms=cuda_ms(lambda: minhash_kernel_signatures(sh, seeds), 50),
@@ -162,11 +197,11 @@ def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
     pcs = bm.popcount(bitmaps)
     Q = N = bitmaps.shape[0]
     W = bitmaps.shape[1]
-    g = torch.Generator(device="cpu").manual_seed(0)
-    rag_q = torch.randint(-2**31, 2**31, (13, W), generator=g,
-                          dtype=torch.int64).to(torch.int32).to(dev)
-    rag_d = torch.randint(-2**31, 2**31, (201, W), generator=g,
-                          dtype=torch.int64).to(torch.int32).to(dev)
+    # ragged: Q, N off the tile; W off the vector width and over one staged
+    # pass; a row view whose base is not 16-byte aligned (big[1:], W = 5)
+    ragged = [(rand_words(13, W), rand_words(201, W)),
+              (rand_words(33, 129), rand_words(65, 129)),
+              (rand_words(31, 5), rand_words(71, 5)[1:])]
 
     def f32_err(a, b) -> float:
         if a.shape != b.shape:
@@ -177,7 +212,7 @@ def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
         return float(torch.nan_to_num(diff, nan=float("inf")).max())
 
     cases = [
-        ("jaccard_cached", "pair_kernel<0>",
+        ("jaccard_cached", "jaccard_cached_tile",
          "src/repro/kernels/bitmap_jaccard.py:33",
          lambda q, d: bitmap_jaccard_matrix(q, d, ref.popcount(q),
                                             ref.popcount(d), cached=True),
@@ -185,24 +220,28 @@ def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
                                              ref.popcount(d)),
          lambda: bitmap_jaccard_matrix(bitmaps, bitmaps, pcs, pcs, cached=True),
          lambda: ref.bitmap_jaccard_ref(bitmaps, bitmaps, pcs, pcs),
-         (2 * Q * W * 4 + 2 * Q * 4 + Q * N * 4, 3 * Q * N * W + 6 * Q * N)),
+         (2 * Q * W * 4 + 2 * Q * 4 + Q * N * 4, 3 * Q * N * W + 6 * Q * N),
+         Q * N * W),
         ("jaccard_nocache", "pair_kernel<1>",
          "src/repro/kernels/bitmap_jaccard.py:46",
          lambda q, d: bitmap_jaccard_matrix(q, d, cached=False),
          lambda q, d: ref.bitmap_jaccard_ref(q, d),
          lambda: bitmap_jaccard_matrix(bitmaps, bitmaps, cached=False),
          lambda: ref.bitmap_jaccard_ref(bitmaps, bitmaps),
-         (2 * Q * W * 4 + Q * N * 4, 7 * Q * N * W + 6 * Q * N)),
+         (2 * Q * W * 4 + Q * N * 4, 7 * Q * N * W + 6 * Q * N),
+         3 * Q * N * W),
         ("hamming", "pair_kernel<2>",
          "src/repro/kernels/bitmap_jaccard.py:60",
          hamming_matrix, ref.hamming_ref,
          lambda: hamming_matrix(bitmaps, bitmaps),
          lambda: ref.hamming_ref(bitmaps, bitmaps),
-         (2 * Q * W * 4 + Q * N * 4, 3 * Q * N * W + 2 * Q * N)),
+         (2 * Q * W * 4 + Q * N * 4, 3 * Q * N * W + 2 * Q * N),
+         Q * N * W),
     ]
-    for name, symbol, replaces, kern, plain, run_k, run_p, (nbytes, ops) in cases:
+    for (name, symbol, replaces, kern, plain, run_k, run_p, (nbytes, ops),
+         n_popc) in cases:
         err = 0.0
-        for q, d in ((bitmaps, bitmaps), (rag_q, rag_d)):
+        for q, d in [(bitmaps, bitmaps)] + ragged:
             got = kern(q, d)
             torch.cuda.synchronize()
             err = max(err, f32_err(got, plain(q, d)))
@@ -210,9 +249,11 @@ def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
         recs.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/bitmap_jaccard.cu",
-            replaces=replaces, shape=f"Q={Q} N={N} W={W} (+13x201)",
+            replaces=replaces,
+            shape=f"Q={Q} N={N} W={W} (+13x201x{W}, 33x65x129, 31x70x5 view)",
             max_abs_err=err, ms=trace_ms(run_k, 200, symbol),
-            call_ms=cuda_ms(run_k, 200), plain_ms=cuda_ms(run_p, 10, 2), bound_ms=b_ms, bound_by=b_by,
+            call_ms=cuda_ms(run_k, 200), plain_ms=cuda_ms(run_p, 10, 2),
+            bound_ms=b_ms, bound_by=b_by, popc_floor_ms=popc_floor_ms(n_popc),
             library_ms=None))
     bad = [r["name"] for r in recs if r["max_abs_err"] != 0]
     if bad:

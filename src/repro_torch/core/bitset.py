@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hashing import bits32
+from repro_torch.device import resolve_device
 
 __all__ = ["bitset_words", "bitset_zeros", "bitset_test", "bitset_add",
            "bitset_nbytes"]
@@ -30,10 +31,11 @@ def bitset_nbytes(capacity: int) -> int:
 
 
 def bitset_zeros(n: int, capacity: int,
-                 device: str | torch.device = "cpu") -> torch.Tensor:
-    """n empty bitsets: (n, (capacity+31)//32) int32."""
+                 device: str | torch.device | None = None) -> torch.Tensor:
+    """n empty bitsets: (n, (capacity+31)//32) int32, on `device` (cuda
+    unless "cpu" is passed)."""
     return torch.zeros((n, bitset_words(capacity)), dtype=torch.int32,
-                       device=device)
+                       device=resolve_device(device))
 
 
 def bitset_test(bs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

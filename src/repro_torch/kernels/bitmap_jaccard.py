@@ -3,12 +3,13 @@
 `_hamming_kernel` behind `bitmap_jaccard_matrix` / `hamming_matrix` in
 `repro/kernels/bitmap_jaccard.py`).
 
-Source: `csrc/bitmap_jaccard.cu`, one templated kernel with an epilogue
-per variant. It is bound by integer XOR + popcount work over words that
-every output re-reads; at the main path's 512 x 512 x 128 words the launch
-itself dominates. One thread per output with its loop over the words, a
-warp sharing its query row; IEEE divisions keep it bit-equal to the plain
-version.
+Source: `csrc/bitmap_jaccard.cu`. The work is integer XOR + popcount over
+words that every output re-reads. K2 (the main path's) is a tiled kernel:
+a block stages 32 query and 32 database rows in shared memory with
+coalesced 16-byte loads and each thread keeps a 2 x 4 register tile of
+XOR-popcount sums; K3 and K4 still run one thread per output. The tile
+and grid live only in the C entry points. IEEE divisions keep every
+result bit-equal to the plain version.
 """
 from __future__ import annotations
 

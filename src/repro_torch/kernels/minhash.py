@@ -3,9 +3,12 @@
 `repro/kernels/minhash.py`).
 
 Source: `csrc/minhash.cu`. It is bound by 32-bit integer work (a dozen
-operations per (doc, hash, shingle) against four bytes per shingle); the
-kernel keeps each thread's running minimum in a register and stages each
-document's shingles once in shared memory for all its hash functions.
+operations per (doc, hash, valid shingle) against four bytes per
+shingle). A block compacts a document's valid shingles into shared
+memory, wherever the padding stands, and its threads, laid out over
+(hash slot, shingle partition) so that no lane idles at H = 112, fold
+them into register minima; the thread layout is chosen in the C entry
+point from H alone.
 """
 from __future__ import annotations
 

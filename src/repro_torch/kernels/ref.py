@@ -57,8 +57,13 @@ def bitmap_jaccard_ref(qs: torch.Tensor, db: torch.Tensor,
 
 
 def hamming_ref(qs: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """(Q, W) x (N, W) packed words -> (Q, N) f32 normalized Hamming sim."""
-    bits = float(qs.shape[-1] * 32)
+    """(Q, W) x (N, W) packed words -> (Q, N) f32 normalized Hamming sim.
+
+    The divisor is a tensor: on CUDA, PyTorch divides by a Python scalar
+    as a product with its reciprocal, which differs from the IEEE quotient
+    by an ulp unless 32 W is a power of two."""
+    bits = torch.tensor(qs.shape[-1] * 32, dtype=torch.float32,
+                        device=qs.device)
     return 1.0 - xor_popcount(qs, db).to(torch.float32) / bits
 
 

@@ -10,15 +10,42 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.bitset import bitset_zeros
 from repro_torch.core.hashing import hash_seeds
 from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels.bitmap_jaccard import bitmap_jaccard_matrix, hamming_matrix
 from repro_torch.kernels.minhash import minhash_kernel_signatures
 
-JACCARD_SHAPES = [(1, 1, 4), (8, 128, 128), (13, 201, 128), (5, 7, 64),
-                  (128, 256, 32), (3, 130, 16), (512, 512, 128)]
+# K2's tiled kernel has 32 x 32 outputs per block and stages 128 words of
+# a row per pass: Q and N at tile - 1, tile, tile + 1 and 2 tile + 1, W on
+# both sides of the 4-word vector and of the 128-word pass
+TILE = 32
+TILE_QN = [(TILE - 1, TILE + 1), (TILE, TILE), (TILE + 1, TILE - 1),
+           (2 * TILE + 1, 2 * TILE + 1), (1, 2 * TILE + 1), (2 * TILE + 1, 1)]
+JACCARD_SHAPES = ([(1, 1, 4), (8, 128, 128), (13, 201, 128), (5, 7, 64),
+                   (128, 256, 32), (3, 130, 16), (512, 512, 128)]
+                  + [(q, n, w) for q, n in TILE_QN
+                     for w in (1, 3, 5, 127, 128, 129)]
+                  + [(300, 1000, 128), (40, 70, 256)])
 MINHASH_SHAPES = [(1, 4, 7), (5, 300, 112), (16, 128, 128), (9, 513, 64),
                   (2, 16, 1), (512, 384, 112)]
+# K1: B off any multiple of the docs per block, L over one staged tile
+# (512), H on and off the lane layouts; padding inside rows, rows with
+# 0, 1 and L valid shingles (b, l, h, layout)
+MINHASH_PADDED = [(1, 1500, 112, "single"), (7, 1500, 112, "mixed"),
+                  (7, 384, 31, "mixed"), (513, 384, 112, "mixed"),
+                  (513, 70, 1, "mixed"), (7, 1500, 128, "alternating"),
+                  (7, 384, 128, "middle"), (13, 600, 1, "single"),
+                  (9, 2, 112, "mixed"), (7, 384, 7, "mixed"),
+                  (3, 200, 600, "mixed"), (3, 1024, 112, "full"),
+                  (3, 513, 112, "full"), (512, 384, 112, "mixed")]
+MINHASH_CASES = (
+    [pytest.param(b, l, h, "tail", id=f"{b}-{l}-{h}")
+     for b, l, h in MINHASH_SHAPES]
+    + [pytest.param(b, l, h, pad, id=f"{b}-{l}-{h}-{pad}")
+       for b, l, h, pad in MINHASH_PADDED])
+ROW_PADS = ("alternating", "middle", "single", "empty", "full", "tail")
+PAD = 0xFFFFFFFF
 
 
 def to_t(a: np.ndarray) -> torch.Tensor:
@@ -27,6 +54,30 @@ def to_t(a: np.ndarray) -> torch.Tensor:
 
 def words(rng, shape) -> np.ndarray:
     return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def place_padding(sh: np.ndarray, kind: str, rng) -> np.ndarray:
+    """Pad (0xFFFFFFFF) shingles of `sh` in place. "tail" pads the back
+    half of row 0 only; "mixed" gives row r the layout ROW_PADS[r % 6];
+    any other layout applies to every row."""
+    b, l = sh.shape
+    if kind == "tail":
+        sh[0, l // 2:] = PAD
+        return sh
+    for r in range(b):
+        k = ROW_PADS[r % len(ROW_PADS)] if kind == "mixed" else kind
+        if k == "alternating":
+            sh[r, ::2] = PAD
+        elif k == "middle":
+            sh[r, l // 3:2 * l // 3 + 1] = PAD
+        elif k == "single":
+            keep = rng.integers(l)
+            sh[r, np.arange(l) != keep] = PAD
+        elif k == "empty":
+            sh[r] = PAD
+        elif k == "tail":
+            sh[r, l // 2:] = PAD
+    return sh
 
 
 @pytest.fixture
@@ -55,16 +106,38 @@ def test_cuda_pair_kernels_equal_plain(cuda, q, n, w):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,l,h", MINHASH_SHAPES)
-def test_cuda_minhash_kernel_equals_plain(cuda, b, l, h):
+@pytest.mark.parametrize("b,l,h,pad", MINHASH_CASES)
+def test_cuda_minhash_kernel_equals_plain(cuda, b, l, h, pad):
     rng = np.random.default_rng(b + l + h)
-    sh = words(rng, (b, l))
-    sh[0, l // 2:] = 0xFFFFFFFF
-    sh_t = to_t(sh).to(cuda)
+    sh_t = to_t(place_padding(words(rng, (b, l)), pad, rng)).to(cuda)
     seeds = hash_seeds(h, device=cuda)
+    before = _lib.LAUNCHES["minhash"]
     got = minhash_kernel_signatures(sh_t, seeds)
     torch.cuda.synchronize()
+    assert _lib.LAUNCHES["minhash"] == before + 1
     assert torch.equal(got, ref.minhash_ref(sh_t, seeds))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,offset", [(5, 5), (128, 1), (128, 4), (8, 2)])
+def test_cuda_jaccard_cached_on_offset_views(cuda, w, offset):
+    """Contiguous row views whose data pointer is `offset` words into the
+    buffer: (5, 5) is big[1:] with W = 5, (128, 1) a W that takes vector
+    loads on a base that is not 16-byte aligned."""
+    rng = np.random.default_rng(w + offset)
+    flat = to_t(words(rng, (offset + 70 * w,))).to(cuda)
+    db = flat[offset:].view(70, w)
+    qs = to_t(words(rng, (33, w))).to(cuda)
+    for a, b in ((qs, db), (db, qs), (db, db)):
+        pa, pb = ref.popcount(a), ref.popcount(b)
+        got = bitmap_jaccard_matrix(a, b, pa, pb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.bitmap_jaccard_ref(a, b, pa, pb))
+
+
+@pytest.mark.gpu
+def test_cuda_bitset_zeros_defaults_to_the_card(cuda):
+    assert bitset_zeros(2, 100).device.type == "cuda"
 
 
 @pytest.mark.gpu

@@ -174,3 +174,16 @@ def test_unported_paths_raise_by_name():
     with pytest.raises(NotImplementedError, match="hnsw_raw"):
         T.hnsw_search(tcfg._replace(metric="hamming"), T.hnsw_init(tcfg, "cpu"),
                       x, k=2)
+
+
+def test_bitset_zeros_follows_the_device_rule(monkeypatch):
+    from repro_torch.core.bitset import bitset_zeros
+    card = torch.cuda.is_available()
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no GPU"):
+            bitset_zeros(2, 100)
+        bs = bitset_zeros(2, 100, device="cpu")
+        assert bs.device.type == "cpu" and bs.shape == (2, 4) and not bs.any()
+    if card:
+        assert bitset_zeros(2, 100).device.type == "cuda"

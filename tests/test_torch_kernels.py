@@ -23,10 +23,20 @@ from repro_torch.kernels.minhash import minhash_kernel_signatures
 torch.set_num_threads(1)
 
 JACCARD_SHAPES = [(1, 1, 4), (8, 128, 128), (13, 201, 128), (5, 7, 64),
-                  (128, 256, 32), (3, 130, 16)]
+                  (128, 256, 32), (3, 130, 16), (33, 65, 129)]
 HAMMING_SHAPES = [(8, 128, 128), (9, 33, 16), (1, 1, 4)]
 MINHASH_SHAPES = [(1, 4, 7), (5, 300, 112), (16, 128, 128), (9, 513, 64),
                   (2, 16, 1)]
+# padding inside rows and rows with a single valid shingle (b, l, h, layout)
+MINHASH_PADDED = [(4, 64, 112, "alternating"), (5, 300, 31, "middle"),
+                  (6, 40, 8, "single"), (7, 600, 112, "mixed")]
+MINHASH_CASES = (
+    [pytest.param(b, l, h, "tail", id=f"{b}-{l}-{h}")
+     for b, l, h in MINHASH_SHAPES]
+    + [pytest.param(b, l, h, pad, id=f"{b}-{l}-{h}-{pad}")
+       for b, l, h, pad in MINHASH_PADDED])
+ROW_PADS = ("alternating", "middle", "single", "empty", "full", "tail")
+PAD = 0xFFFFFFFF
 
 
 def to_t(a: np.ndarray) -> torch.Tensor:
@@ -35,6 +45,31 @@ def to_t(a: np.ndarray) -> torch.Tensor:
 
 def words(rng, shape) -> np.ndarray:
     return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def place_padding(sh: np.ndarray, kind: str, rng) -> np.ndarray:
+    """Pad (0xFFFFFFFF) shingles of `sh` in place. "tail" pads the back
+    half of row 0 only; "mixed" gives row r the layout ROW_PADS[r % 6];
+    any other layout applies to every row. Padding anywhere in a row is
+    masked exactly as at its end."""
+    b, l = sh.shape
+    if kind == "tail":
+        sh[0, l // 2:] = PAD
+        return sh
+    for r in range(b):
+        k = ROW_PADS[r % len(ROW_PADS)] if kind == "mixed" else kind
+        if k == "alternating":
+            sh[r, ::2] = PAD
+        elif k == "middle":
+            sh[r, l // 3:2 * l // 3 + 1] = PAD
+        elif k == "single":
+            keep = rng.integers(l)
+            sh[r, np.arange(l) != keep] = PAD
+        elif k == "empty":
+            sh[r] = PAD
+        elif k == "tail":
+            sh[r, l // 2:] = PAD
+    return sh
 
 
 @pytest.mark.parametrize("q,n,w", JACCARD_SHAPES)
@@ -76,11 +111,27 @@ def test_hamming_plain_matches_pallas_and_ref(q, n, w):
     np.testing.assert_array_equal(got, jplain)
 
 
-@pytest.mark.parametrize("b,l,h", MINHASH_SHAPES)
-def test_minhash_plain_matches_pallas_and_ref(b, l, h):
+@pytest.mark.parametrize("q,n,w", [(33, 65, 129), (31, 70, 5)])
+def test_hamming_plain_off_power_of_two_words(q, n, w):
+    """With 32 W not a power of two, px / (32 W) rounds. The port divides
+    as IEEE f32 (kernel and plain version alike), as the reference's eager
+    plain version does; its jitted paths (the Pallas kernel among them)
+    take XLA's rewrite 1 - px * (1 / (32 W)), contracted into one FMA,
+    which may differ by one ulp."""
+    rng = np.random.default_rng(q + n * 7 + w)
+    qs, db = words(rng, (q, w)), words(rng, (n, w))
+    got = ops.hamming(to_t(qs), to_t(db)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jref.hamming_ref(jnp.asarray(qs), jnp.asarray(db))))
+    pallas = np.asarray(jops.hamming(jnp.asarray(qs), jnp.asarray(db),
+                                     interpret=True))
+    np.testing.assert_array_max_ulp(got, pallas, maxulp=1)
+
+
+@pytest.mark.parametrize("b,l,h,pad", MINHASH_CASES)
+def test_minhash_plain_matches_pallas_and_ref(b, l, h, pad):
     rng = np.random.default_rng(b * 100 + l + h)
-    sh = words(rng, (b, l))
-    sh[0, l // 2:] = 0xFFFFFFFF
+    sh = place_padding(words(rng, (b, l)), pad, rng)
     seeds = np.asarray(j_hash_seeds(h))
     pallas = np.asarray(jops.minhash(jnp.asarray(sh), jnp.asarray(seeds),
                                      interpret=True))
