@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hashing import bits32, u32
-from repro_torch.kernels.ref import popcount, xor_popcount
+from repro_torch.kernels.ref import hamming_from_px, popcount, xor_popcount
 
 __all__ = [
     "DEFAULT_T",
@@ -76,9 +76,9 @@ def minhash_jaccard_sim(sa, sb) -> torch.Tensor:
 
 
 def hamming_sim(sa, sb) -> torch.Tensor:
-    """Normalized Hamming similarity over packed signature bits."""
-    bits = sa.shape[-1] * 32
-    return 1.0 - popcount(sa ^ sb).to(torch.float32) / float(bits)
+    """Normalized Hamming similarity over packed signature bits, rounded
+    as the reference's jitted code rounds it (`hamming_from_px`)."""
+    return hamming_from_px(popcount(sa ^ sb), sa.shape[-1] * 32)
 
 
 # ------------------------------------------------- pairwise (Q, N) variants
@@ -117,5 +117,4 @@ def pairwise_minhash_jaccard(qs, db) -> torch.Tensor:
 
 
 def pairwise_hamming(qs, db) -> torch.Tensor:
-    bits = qs.shape[-1] * 32
-    return 1.0 - xor_popcount(qs, db).to(torch.float32) / float(bits)
+    return hamming_from_px(xor_popcount(qs, db), qs.shape[-1] * 32)

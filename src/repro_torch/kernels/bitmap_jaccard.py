@@ -4,12 +4,13 @@
 `repro/kernels/bitmap_jaccard.py`).
 
 Source: `csrc/bitmap_jaccard.cu`. The work is integer XOR + popcount over
-words that every output re-reads. K2 (the main path's) is a tiled kernel:
-a block stages 32 query and 32 database rows in shared memory with
-coalesced 16-byte loads and each thread keeps a 2 x 4 register tile of
-XOR-popcount sums; K3 and K4 still run one thread per output. The tile
-and grid live only in the C entry points. IEEE divisions keep every
-result bit-equal to the plain version.
+words that every output re-reads. K2, K3 and K4 are one tiled kernel with
+three epilogues: a block stages 32 query and 32 database rows in shared
+memory with coalesced 16-byte loads and each thread keeps a 2 x 4 register
+tile of XOR-popcount sums; K3 recounts the rows' popcounts as it stages
+them. The tile and grid live only in the C entry points. IEEE divisions,
+and K4's single FMA rounding (`ref.hamming_from_px`), keep every result
+bit-equal to the plain version.
 """
 from __future__ import annotations
 
@@ -38,8 +39,8 @@ def bitmap_jaccard_matrix(qs: torch.Tensor, db: torch.Tensor,
     """(Q, W) x (N, W) words -> (Q, N) f32 bitmap-Jaccard similarity.
 
     cached=True (K2) reads the popcounts pq (Q,) / pb (N,) int32, computing
-    them first when None; cached=False (K3) recomputes them per pair inside
-    the kernel, the Fig. 8 NO CACHE arm."""
+    them first when None; cached=False (K3) recounts them inside the
+    kernel, the Fig. 8 NO CACHE arm."""
     _check_pair(qs, db)
     Q, W = qs.shape
     N = db.shape[0]
@@ -73,7 +74,8 @@ def bitmap_jaccard_matrix(qs: torch.Tensor, db: torch.Tensor,
 
 
 def hamming_matrix(qs: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """(Q, W) x (N, W) words -> (Q, N) f32 normalized Hamming similarity."""
+    """(Q, W) x (N, W) words -> (Q, N) f32 normalized Hamming similarity,
+    rounded as `ref.hamming_from_px`."""
     _check_pair(qs, db)
     if qs.device.type == "cpu":
         return ref.hamming_ref(qs, db)

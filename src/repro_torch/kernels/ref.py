@@ -10,13 +10,14 @@ changes a result.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.hashing import (UINT32_MAX, UINT32_MAX_BITS, bits32,
                                       multihash, popc)
 
-__all__ = ["bitmap_jaccard_ref", "hamming_ref", "minhash_ref", "popcount",
-           "xor_popcount"]
+__all__ = ["bitmap_jaccard_ref", "hamming_from_px", "hamming_ref",
+           "minhash_ref", "popcount", "xor_popcount"]
 
 _BLOCK_ELEMS = 1 << 22     # int64 elements per temporary block
 
@@ -56,15 +57,26 @@ def bitmap_jaccard_ref(qs: torch.Tensor, db: torch.Tensor,
                        torch.ones_like(union2))
 
 
-def hamming_ref(qs: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """(Q, W) x (N, W) packed words -> (Q, N) f32 normalized Hamming sim.
+def hamming_from_px(px: torch.Tensor, bits: int) -> torch.Tensor:
+    """Integer Hamming distances px (any int dtype) out of `bits` -> f32
+    similarity 1 - px / bits, rounded once as fma(-px, f32(1 / bits), 1).
 
-    The divisor is a tensor: on CUDA, PyTorch divides by a Python scalar
-    as a product with its reciprocal, which differs from the IEEE quotient
-    by an ulp unless 32 W is a power of two."""
-    bits = torch.tensor(qs.shape[-1] * 32, dtype=torch.float32,
-                        device=qs.device)
-    return 1.0 - xor_popcount(qs, db).to(torch.float32) / bits
+    That is the reference's rounding wherever it is jitted (XLA turns the
+    division by a constant into a product with its f32 reciprocal, fused
+    with the subtraction) and K4's. It is computed exactly: with
+    f32(1 / bits) = m * 2**-k for a 24-bit integer m, 2**k - px * m is an
+    exact int64, converted to f32 once (the one rounding), and the scale
+    by 2**-k is exact."""
+    frac, exp = np.frexp(np.float32(1) / np.float32(bits))
+    m = int(frac * (1 << 24))
+    k = 24 - int(exp)
+    exact = (1 << k) - px.to(torch.int64) * m
+    return exact.to(torch.float32) * (2.0 ** -k)
+
+
+def hamming_ref(qs: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """(Q, W) x (N, W) packed words -> (Q, N) f32 normalized Hamming sim."""
+    return hamming_from_px(xor_popcount(qs, db), qs.shape[-1] * 32)
 
 
 def minhash_ref(shingles: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,9 @@ from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels.bitmap_jaccard import bitmap_jaccard_matrix, hamming_matrix
 from repro_torch.kernels.minhash import minhash_kernel_signatures
 
-# K2's tiled kernel has 32 x 32 outputs per block and stages 128 words of
-# a row per pass: Q and N at tile - 1, tile, tile + 1 and 2 tile + 1, W on
-# both sides of the 4-word vector and of the 128-word pass
+# K2-K4's tiled kernel has 32 x 32 outputs per block and stages 128 words
+# of a row per pass: Q and N at tile - 1, tile, tile + 1 and 2 tile + 1, W
+# on both sides of the 4-word vector and of the 128-word pass
 TILE = 32
 TILE_QN = [(TILE - 1, TILE + 1), (TILE, TILE), (TILE + 1, TILE - 1),
            (2 * TILE + 1, 2 * TILE + 1), (1, 2 * TILE + 1), (2 * TILE + 1, 1)]
@@ -118,21 +118,75 @@ def test_cuda_minhash_kernel_equals_plain(cuda, b, l, h, pad):
     assert torch.equal(got, ref.minhash_ref(sh_t, seeds))
 
 
+def _epilogue(kind: str):
+    """(kernel, plain version) of one of the tiled kernel's epilogues."""
+    if kind == "cached":
+        return (lambda a, b: bitmap_jaccard_matrix(a, b, ref.popcount(a),
+                                                   ref.popcount(b)),
+                lambda a, b: ref.bitmap_jaccard_ref(a, b, ref.popcount(a),
+                                                    ref.popcount(b)))
+    if kind == "nocache":
+        return (lambda a, b: bitmap_jaccard_matrix(a, b, cached=False),
+                ref.bitmap_jaccard_ref)
+    return hamming_matrix, ref.hamming_ref
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("epilogue", ["cached", "nocache", "hamming"])
 @pytest.mark.parametrize("w,offset", [(5, 5), (128, 1), (128, 4), (8, 2)])
-def test_cuda_jaccard_cached_on_offset_views(cuda, w, offset):
+def test_cuda_jaccard_cached_on_offset_views(cuda, w, offset, epilogue):
     """Contiguous row views whose data pointer is `offset` words into the
     buffer: (5, 5) is big[1:] with W = 5, (128, 1) a W that takes vector
-    loads on a base that is not 16-byte aligned."""
+    loads on a base that is not 16-byte aligned; for K2, K3 and K4."""
+    kern, plain = _epilogue(epilogue)
     rng = np.random.default_rng(w + offset)
     flat = to_t(words(rng, (offset + 70 * w,))).to(cuda)
     db = flat[offset:].view(70, w)
     qs = to_t(words(rng, (33, w))).to(cuda)
     for a, b in ((qs, db), (db, qs), (db, db)):
-        pa, pb = ref.popcount(a), ref.popcount(b)
-        got = bitmap_jaccard_matrix(a, b, pa, pb)
+        got = kern(a, b)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref.bitmap_jaccard_ref(a, b, pa, pb))
+        assert torch.equal(got, plain(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,n,w", [(512, 512, 128), (33, 65, 129),
+                                   (31, 70, 5), (65, 1, 256)])
+def test_cuda_nocache_recount_equals_cached(cuda, q, n, w):
+    """K3 recounts the rows' popcounts inside the kernel: its matrix equals
+    K2's fed the popcounts from outside, with one launch each. Rows of
+    every density (empty, sparse, full) stress the recount."""
+    rng = np.random.default_rng(q * n + w)
+    qs, db = words(rng, (q, w)), words(rng, (n, w))
+    qs[::3] &= words(rng, (len(qs[::3]), w))        # sparser rows
+    qs[0] = 0
+    db[-1] = 0xFFFFFFFF
+    qs, db = to_t(qs).to(cuda), to_t(db).to(cuda)
+    before = dict(_lib.LAUNCHES)
+    k3 = bitmap_jaccard_matrix(qs, db, cached=False)
+    k2 = bitmap_jaccard_matrix(qs, db, ref.popcount(qs), ref.popcount(db))
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["jaccard_nocache"] == before["jaccard_nocache"] + 1
+    assert _lib.LAUNCHES["jaccard_cached"] == before["jaccard_cached"] + 1
+    assert torch.equal(k3, k2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [5, 112, 129])
+def test_cuda_hamming_rounds_as_plain_helper(cuda, w):
+    """K4 against `ref.hamming_from_px` for every distance px in [0, 32 W]:
+    database row i has its first i bits set and the query is empty, so
+    px = i. 32 W is not a power of two here, where the rounding matters."""
+    bits = 32 * w
+    set_bits = np.arange(bits)[None, :] < np.arange(bits + 1)[:, None]
+    db = np.packbits(set_bits, axis=1, bitorder="little").view(np.uint32)
+    db_t = to_t(db).to(cuda)
+    qs_t = torch.zeros((1, w), dtype=torch.int32, device=cuda)
+    got = hamming_matrix(qs_t, db_t)
+    torch.cuda.synchronize()
+    exp = ref.hamming_from_px(torch.arange(bits + 1, dtype=torch.int32), bits)
+    assert torch.equal(got.cpu()[0], exp)
+    assert torch.equal(got, ref.hamming_ref(qs_t, db_t))
 
 
 @pytest.mark.gpu

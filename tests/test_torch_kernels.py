@@ -4,13 +4,17 @@ tests/test_kernels.py, and the dispatch rules of `repro_torch.kernels.ops`.
 The CUDA kernels themselves are tested in tests/test_torch_cuda.py.
 
 All outputs must match exactly: u32 bit for bit, f32 with
-assert_array_equal (the formulas are the same, and every division is
-IEEE-rounded on both sides)."""
+assert_array_equal (the formulas are the same, every Jaccard division is
+IEEE-rounded on both sides, and Hamming rounds once as the reference's
+jitted fma(-px, 1/(32 W), 1)). The one stated split: the reference's eager
+`ref.hamming_ref` divides as IEEE, within 1 ulp of that."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.core import bitmap as jbm
 from repro.core.hashing import hash_seeds as j_hash_seeds
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -113,19 +117,51 @@ def test_hamming_plain_matches_pallas_and_ref(q, n, w):
 
 @pytest.mark.parametrize("q,n,w", [(33, 65, 129), (31, 70, 5)])
 def test_hamming_plain_off_power_of_two_words(q, n, w):
-    """With 32 W not a power of two, px / (32 W) rounds. The port divides
-    as IEEE f32 (kernel and plain version alike), as the reference's eager
-    plain version does; its jitted paths (the Pallas kernel among them)
-    take XLA's rewrite 1 - px * (1 / (32 W)), contracted into one FMA,
-    which may differ by one ulp."""
+    """With 32 W not a power of two, px / (32 W) rounds. The port rounds
+    once as fma(-px, f32(1 / (32 W)), 1) (kernel and plain version alike),
+    as the reference's jitted paths do (the Pallas kernel among them: XLA
+    rewrites the division by a constant); the reference's eager plain
+    version divides as IEEE, which may differ by one ulp."""
     rng = np.random.default_rng(q + n * 7 + w)
     qs, db = words(rng, (q, w)), words(rng, (n, w))
     got = ops.hamming(to_t(qs), to_t(db)).numpy()
-    np.testing.assert_array_equal(
-        got, np.asarray(jref.hamming_ref(jnp.asarray(qs), jnp.asarray(db))))
     pallas = np.asarray(jops.hamming(jnp.asarray(qs), jnp.asarray(db),
                                      interpret=True))
-    np.testing.assert_array_max_ulp(got, pallas, maxulp=1)
+    np.testing.assert_array_equal(got.view(np.uint32), pallas.view(np.uint32))
+    eager = np.asarray(jref.hamming_ref(jnp.asarray(qs), jnp.asarray(db)))
+    np.testing.assert_array_max_ulp(got, eager, maxulp=1)
+
+
+@pytest.mark.parametrize("w", [5, 16, 112, 128, 129])
+def test_hamming_from_px_rounds_as_jit(w):
+    """Every distance px in [0, 32 W]: the helper equals the reference's
+    jitted `1 - px / (32 W)` bit for bit."""
+    bits = 32 * w
+    px = np.arange(bits + 1, dtype=np.int32)
+    jit = np.asarray(jax.jit(
+        lambda p: 1.0 - p.astype(jnp.float32) / jnp.float32(bits))(px))
+    got = ref.hamming_from_px(torch.from_numpy(px), bits).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), jit.view(np.uint32))
+    if bits & (bits - 1):                # the IEEE quotient rounds elsewhere
+        ieee = np.float32(1) - px.astype(np.float32) / np.float32(bits)
+        assert (ieee != jit).any()
+
+
+@pytest.mark.parametrize("w", [5, 16, 112, 128, 129])
+def test_ops_hamming_matches_jitted_reference(w):
+    """ops.hamming (the CPU tensor takes the plain version) and its
+    use_kernel=False arm equal the reference's jitted pairwise_hamming and
+    its Pallas kernel bit for bit."""
+    rng = np.random.default_rng(w)
+    qs, db = words(rng, (9, w)), words(rng, (40, w))
+    jit = np.asarray(jbm.pairwise_hamming(jnp.asarray(qs), jnp.asarray(db)))
+    pallas = np.asarray(jops.hamming(jnp.asarray(qs), jnp.asarray(db),
+                                     interpret=True))
+    np.testing.assert_array_equal(pallas.view(np.uint32), jit.view(np.uint32))
+    for use_kernel in (True, False):
+        got = ops.hamming(to_t(qs), to_t(db), use_kernel=use_kernel).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32), jit.view(np.uint32))
 
 
 @pytest.mark.parametrize("b,l,h,pad", MINHASH_CASES)

@@ -2,6 +2,7 @@
 seeds, shingles, MinHash, bitmaps and popcounts, and fold_signatures on
 every corpus preset (short docs and all-padding rows included)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -105,6 +106,28 @@ def test_pairwise_similarities_match():
     for exp, got in pairs:
         assert got.dtype == torch.float32
         np.testing.assert_array_equal(got.numpy(), np.asarray(exp))
+
+
+@pytest.mark.parametrize("w", [5, 16, 112, 128, 129])
+def test_hamming_rounds_as_jitted_reference(w):
+    """pairwise_hamming and hamming_sim equal the reference's jitted
+    versions bit for bit, also where 32 W is not a power of two (W = 112
+    is the raw backend's 112 MinHash lanes): one rounding of
+    fma(-px, f32(1 / (32 W)), 1), as XLA computes a division by a
+    constant."""
+    rng = np.random.default_rng(w)
+    a = rng.integers(0, 2**32, (13, w), dtype=np.uint64).astype(np.uint32)
+    b = rng.integers(0, 2**32, (21, w), dtype=np.uint64).astype(np.uint32)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    ta, tb = to_t(a), to_t(b)
+    pairs = [
+        (jbm.pairwise_hamming(ja, jb), tbm.pairwise_hamming(ta, tb)),
+        (jax.jit(jbm.hamming_sim)(ja, jb[:13]), tbm.hamming_sim(ta, tb[:13])),
+    ]
+    for exp, got in pairs:
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      np.asarray(exp).view(np.uint32))
 
 
 @pytest.mark.parametrize("preset", sorted(DATASET_PRESETS))
