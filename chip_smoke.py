@@ -15,6 +15,17 @@ Phases (any failure exits non-zero and prints no result):
   3. pipeline — FoldConfig() defaults at capacity 2**20 over 32 Common Crawl
      preset batches of 512 docs: docs/s and per-stage medians (the main path: K1, K2)
   4. hamming — ops.hamming, the only entry point of kernel K4
+  5. reference — the exact `brute` backend on the card over phase 3's
+     batches: its docs/s, and the recall and false-positive rate of phase
+     3's hnsw keep masks against it; brute on cuda equals brute on cpu
+     (keep masks and sims) over 4 batches of 256
+  6. options — FoldPipeline on cuda equals it on cpu (keep masks and full
+     state) with select_heuristic, batched_insert=False, verify_minhash,
+     and exact_filter (fed repeated documents so the front door hits)
+  7. lifecycle — on phase 3's index: delete every third admitted slot,
+     compact (wall and device time), 4 more batches reuse the freed slots,
+     save to build/ and restore into a fresh card pipeline (identical
+     state and verdicts); and cuda-vs-cpu parity of delete and compact
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -99,31 +110,42 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 def trace_ms(fn, reps: int, kernel: str) -> float:
     """Mean device time of `kernel` per call of `fn`, from the kernel
     events of a torch.profiler trace of `reps` calls: the kernel body
-    alone, not the host's cost of issuing it. Fails unless the trace holds
-    exactly one such kernel per call."""
+    alone, not the host's cost of issuing it. Fails unless the wrappers
+    launched exactly one kernel per call; a trace that recorded fewer
+    kernel events than that (the profiler drops events now and then) is
+    taken again, and after three incomplete traces the script fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _lib
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     os.makedirs(PROFILE_DIR, exist_ok=True)
     tag = kernel.replace("<", "_").replace(">", "")
     path = os.path.join(PROFILE_DIR, f"kernel_{tag}.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    durs = [e["dur"] for e in kernels if kernel in e.get("name", "")]
-    if len(durs) != reps:
+    attempts = 3
+    for attempt in range(attempts):
+        torch.cuda.synchronize()
+        before = sum(_lib.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = sum(_lib.LAUNCHES.values()) - before
+        if launched != reps:
+            fail(f"{kernel}: {launched} launches for {reps} calls")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        durs = [e["dur"] for e in kernels if kernel in e.get("name", "")]
+        if len(durs) == reps:
+            return sum(durs) / reps / 1e3
         seen = sorted({e.get("name", "")[:60] for e in kernels})
-        fail(f"trace holds {len(durs)} {kernel} events for {reps} calls; "
-             f"kernels seen: {seen}")
-    return sum(durs) / reps / 1e3
+        log(f"trace {attempt + 1} of {kernel} recorded {len(durs)} kernel "
+            f"events for {reps} launches; kernels seen: {seen}")
+    fail(f"no complete trace of {kernel} in {attempts} attempts")
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -275,39 +297,55 @@ def states_equal(a, b) -> list:
     return [k for k in na if not np.array_equal(na[k], nb[k])]
 
 
-def phase_parity(batches, cached: bool, dev) -> dict:
-    """FoldPipeline on the card vs cpu: identical keep masks and states."""
+def parity_run(tag: str, gpu, cpu, batches) -> dict:
+    """The same batches through a card and a cpu pipeline: identical keep
+    masks, HNSW states and sig stores. Returns both sides' wall times, the
+    card's per-batch t_insert and the admitted count."""
+    t_gpu = t_cpu = 0.0
+    kept, t_insert = 0, []
+    for i, (tok, ln) in enumerate(batches):
+        t0 = time.perf_counter()
+        kg, st = gpu.process_batch(tok, ln)
+        t1 = time.perf_counter()
+        kc, _ = cpu.process_batch(tok, ln)
+        t2 = time.perf_counter()
+        t_gpu += t1 - t0
+        t_cpu += t2 - t1
+        t_insert.append(st["t_insert"])
+        if not np.array_equal(kg, kc):
+            fail(f"parity ({tag}): keep masks differ at batch {i}")
+        bad = states_equal(gpu.backend.state, cpu.backend.state)
+        store = getattr(gpu.backend, "_sig_store", None)
+        if store is not None and not np.array_equal(
+                store.cpu().numpy(), cpu.backend._sig_store.numpy()):
+            bad.append("sig_store")
+        if bad:
+            fail(f"parity ({tag}): states differ at batch {i}: {bad}")
+        kept += int(kg.sum())
+    return {"cuda_s": t_gpu, "cpu_s": t_cpu, "t_insert": t_insert,
+            "admitted": kept}
+
+
+def phase_parity(batches, cached: bool, dev):
+    """FoldPipeline on the card vs cpu: identical keep masks and states.
+    Returns the launches and both pipelines (phase 7 goes on with them)."""
     from repro_torch.core.dedup import FoldConfig, FoldPipeline
     from repro_torch.kernels import _lib
     cfg = FoldConfig(capacity=16384, cached=cached)
     gpu = FoldPipeline(cfg, device=dev)
     cpu = FoldPipeline(cfg, device="cpu")
     _lib.reset_launches()
-    t_gpu = t_cpu = 0.0
-    kept = 0
-    for i, (tok, ln) in enumerate(batches):
-        t0 = time.perf_counter()
-        kg, _ = gpu.process_batch(tok, ln)
-        t1 = time.perf_counter()
-        kc, _ = cpu.process_batch(tok, ln)
-        t2 = time.perf_counter()
-        t_gpu += t1 - t0
-        t_cpu += t2 - t1
-        if not np.array_equal(kg, kc):
-            fail(f"parity (cached={cached}): keep masks differ at batch {i}")
-        bad = states_equal(gpu.state, cpu.state)
-        if bad:
-            fail(f"parity (cached={cached}): states differ at batch {i}: {bad}")
-        kept += int(kg.sum())
+    r = parity_run(f"cached={cached}", gpu, cpu, batches)
     launches = dict(_lib.LAUNCHES)
     log(f"parity cached={cached}: {len(batches)} batches x "
         f"{len(batches[0][0])} docs at capacity {cfg.capacity}: keep masks "
-        f"and states identical on cuda and cpu; admitted {kept}; "
-        f"cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s; launches {launches}")
-    return launches
+        f"and states identical on cuda and cpu; admitted {r['admitted']}; "
+        f"cuda {r['cuda_s']:.3f} s, cpu {r['cpu_s']:.3f} s; t_insert "
+        f"{json.dumps(r['t_insert'])}; launches {launches}")
+    return launches, (gpu, cpu)
 
 
-def phase_pipeline(batches, card: str, dev) -> tuple[dict, dict]:
+def phase_pipeline(batches, card: str, dev):
     import torch
 
     from repro_torch.core.dedup import FoldConfig, FoldPipeline
@@ -315,7 +353,7 @@ def phase_pipeline(batches, card: str, dev) -> tuple[dict, dict]:
     cfg = FoldConfig(capacity=1 << 20)
     torch.cuda.reset_peak_memory_stats()
     pipe = FoldPipeline(cfg, device=dev)
-    stats = []
+    stats, keeps = [], []
     _lib.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -324,6 +362,7 @@ def phase_pipeline(batches, card: str, dev) -> tuple[dict, dict]:
         if keep.shape != (len(tok),) or st["n_overflow"] != 0:
             fail(f"bad batch result: shape {keep.shape}, stats {st}")
         stats.append(st)
+        keeps.append(keep)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
@@ -348,24 +387,28 @@ def phase_pipeline(batches, card: str, dev) -> tuple[dict, dict]:
     log(f"pipeline: admitted {admitted} of {n_docs} docs into a "
         f"{cfg.capacity}-slot index (the doc count is cut by the run's "
         f"time limit, not by the index)")
-    log("profile " + json.dumps(profile_batch(pipe, batches[-1])))
-    return res, launches
+    # one more batch under torch.profiler, after the timed run
+    prof, _ = device_profile(lambda: pipe.process_batch(*batches[-1]),
+                             "batch_trace")
+    log("profile " + json.dumps(prof))
+    return res, launches, pipe, np.concatenate(keeps)
 
 
-def profile_batch(pipe, batch) -> dict:
-    """One more batch under torch.profiler (after the timed run): device
-    busy time from the trace's kernel/memcpy/memset events against the
-    wall time, the launch count, and the costliest kernels and runtime
-    calls. The trace goes to build/profile/ and is read back."""
+def device_profile(fn, name: str) -> tuple[dict, object]:
+    """Run fn() once under torch.profiler: its wall time (the profiler's
+    own cost included), the device busy time from the trace's kernel,
+    memcpy and memset events, their count, and the costliest kernels and
+    runtime calls. The trace goes to build/profile/<name>.json and is read
+    back. Returns (that record, fn's result)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(PROFILE_DIR, exist_ok=True)
-    path = os.path.join(PROFILE_DIR, "batch_trace.json")
+    path = os.path.join(PROFILE_DIR, f"{name}.json")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.process_batch(*batch)
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(path)
@@ -373,13 +416,13 @@ def profile_batch(pipe, batch) -> dict:
         events = json.load(f)["traceEvents"]
     dev, runtime = {}, {}
     for e in events:
-        cat, name, dur = e.get("cat"), e.get("name", ""), e.get("dur", 0)
+        cat, ev, dur = e.get("cat"), e.get("name", ""), e.get("dur", 0)
         if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
-            n, t = dev.get(name, (0, 0.0))
-            dev[name] = (n + 1, t + dur)
+            n, t = dev.get(ev, (0, 0.0))
+            dev[ev] = (n + 1, t + dur)
         elif cat == "cuda_runtime":
-            n, t = runtime.get(name, (0, 0.0))
-            runtime[name] = (n + 1, t + dur)
+            n, t = runtime.get(ev, (0, 0.0))
+            runtime[ev] = (n + 1, t + dur)
     busy_ms = sum(t for _, t in dev.values()) / 1e3
 
     def top(d, n):
@@ -389,7 +432,226 @@ def profile_batch(pipe, batch) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_ops": sum(c for c, _ in dev.values()),
-            "top_device": top(dev, 6), "top_runtime": top(runtime, 4)}
+            "top_device": top(dev, 6), "top_runtime": top(runtime, 4)}, out
+
+
+def recall_fp(ref_keep: np.ndarray, keep: np.ndarray) -> tuple[float, float]:
+    """Recall of the duplicates `ref_keep` drops, and the share of its
+    kept docs that `keep` drops (as benchmarks/common.py computes them)."""
+    ref_dup = ~ref_keep
+    dup = ~keep
+    recall = float((dup & ref_dup).sum() / max(ref_dup.sum(), 1))
+    fp = float((dup & ~ref_dup).sum() / max((~ref_dup).sum(), 1))
+    return recall, fp
+
+
+def require_launched(tag: str, launches: dict, names) -> None:
+    missing = [n for n in names if launches.get(n, 0) <= 0]
+    if missing:
+        fail(f"{tag}: kernels {missing} were not launched: {launches}")
+
+
+def phase_reference(pipe_batches, hnsw_keep, par_batches, dev) -> dict:
+    """brute on the card over phase 3's batches: docs/s, and phase 3's
+    hnsw keep masks against it; then brute on cuda vs cpu."""
+    import torch
+
+    from repro_torch.core.dedup import FoldConfig, bitmap_tau
+    from repro_torch.index import make_pipeline
+    from repro_torch.kernels import _lib
+    t_phase = time.perf_counter()
+    out = {}
+    hnsw_cfg = FoldConfig(capacity=1 << 20)
+    # brute at the default tau (0.7, MinHash space: the benchmark
+    # protocol) and at the MinHash tau phase 3's bitmap tau stands for
+    # (b = m / (2 - m), so m = 2b / (1 + b))
+    b = bitmap_tau(hnsw_cfg)
+    for tag, tau in (("tau_0.7", 0.7), ("tau_matched", 2 * b / (1 + b))):
+        pipe = make_pipeline("brute", FoldConfig(capacity=1 << 20, tau=tau),
+                             device=dev)
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keeps = [pipe.process_batch(tok, ln)[0] for tok, ln in pipe_batches]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+        require_launched(f"brute {tag}", launches, ["minhash"])
+        keep = np.concatenate(keeps)
+        rec, fp = recall_fp(keep, hnsw_keep)
+        n_docs = len(keep)
+        out[tag] = {"tau": tau, "docs": n_docs, "wall_s": wall,
+                    "docs_per_s": n_docs / wall, "admitted": int(keep.sum()),
+                    "hnsw_admitted": int(hnsw_keep.sum()),
+                    "hnsw_recall": rec, "hnsw_fp": fp,
+                    "store_mib": pipe.backend.store.numel() * 4 / 2**20,
+                    "launches": launches}
+        log("reference " + json.dumps(out[tag]))
+        del pipe
+    # brute on cuda vs cpu: keep masks, neighbor ids and sims bit for bit
+    cfg = FoldConfig(capacity=16384)
+    gpu = make_pipeline("brute", cfg, device=dev)
+    cpu = make_pipeline("brute", cfg, device="cpu")
+    for i, (tok, ln) in enumerate(par_batches):
+        qg, qc = gpu.query(tok, ln), cpu.query(tok, ln)
+        if not (np.array_equal(qg.ids, qc.ids)
+                and np.array_equal(qg.sims.view(np.uint32),
+                                   qc.sims.view(np.uint32))):
+            fail(f"brute cuda vs cpu: ids or sims differ at batch {i}")
+        if not np.array_equal(gpu.process_batch(tok, ln)[0],
+                              cpu.process_batch(tok, ln)[0]):
+            fail(f"brute cuda vs cpu: keep masks differ at batch {i}")
+    out["parity_batches"] = len(par_batches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"reference: brute on cuda equals brute on cpu over "
+        f"{len(par_batches)} batches of {len(par_batches[0][0])} (keep "
+        f"masks, ids, sims); phase wall {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_options(par_batches, dev) -> dict:
+    """FoldPipeline on cuda vs cpu with each option on."""
+    from repro_torch.core.dedup import FoldConfig, FoldPipeline
+    from repro_torch.kernels import _lib
+    t_phase = time.perf_counter()
+    (t0, l0), (t1, l1) = par_batches[0], par_batches[1]
+    h = len(t0) // 2
+    width = max(t0.shape[1], t1.shape[1])
+
+    def pad(t):
+        return np.pad(t, ((0, 0), (0, width - t.shape[1])))
+
+    repeat = (np.concatenate([pad(t0)[:h], pad(t1)[h:]]),
+              np.concatenate([l0[:h], l1[h:]]))
+    arms = [("select_heuristic", {"select_heuristic": True}, par_batches[:3]),
+            ("per_doc", {"batched_insert": False}, par_batches[:3]),
+            ("verify_minhash", {"verify_minhash": True}, par_batches),
+            ("exact_filter", {"exact_filter": True},
+             par_batches[:3] + [repeat])]
+    out = {}
+    for tag, opts, batches in arms:
+        cfg = FoldConfig(capacity=16384, **opts)
+        gpu = FoldPipeline(cfg, device=dev)
+        cpu = FoldPipeline(cfg, device="cpu")
+        _lib.reset_launches()
+        r = parity_run(tag, gpu, cpu, batches)
+        r["launches"] = dict(_lib.LAUNCHES)
+        require_launched(tag, r["launches"], ["minhash", "jaccard_cached"])
+        if tag == "exact_filter":
+            r["exact_hits"] = gpu.exact.hits
+            if gpu.exact.hits <= 0 or gpu.exact.hits != cpu.exact.hits:
+                fail(f"exact_filter: front door hits {gpu.exact.hits} "
+                     f"(cpu {cpu.exact.hits})")
+        r["batches"] = len(batches)
+        out[tag] = r
+        log(f"options {tag}: " + json.dumps(r))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"options: cuda equals cpu for all four arms; phase wall "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
+def phase_lifecycle(pipe, more_batches, parity_pipes, parity_more, dev
+                    ) -> dict:
+    """Delete, compact, reuse, save and restore on phase 3's index; then
+    cuda-vs-cpu parity of delete and compact on phase 2's pipelines."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.dedup import FoldPipeline
+    from repro_torch.core.hnsw import needs_repair
+    from repro_torch.kernels import _lib
+    t_phase = time.perf_counter()
+    out = {}
+    st = pipe.backend.state
+    admitted = np.flatnonzero(st.node_level.cpu().numpy() >= 0)
+    kill = admitted[::3]
+    count0 = int(st.count)
+    n_del = pipe.delete(kill)
+    if n_del != len(kill):
+        fail(f"lifecycle: deleted {n_del} of {len(kill)}")
+    st = pipe.backend.state
+    live = (st.node_level >= 0) & ~st.dead
+    scored = [int(needs_repair(st, live, lev).numel())
+              for lev in range(pipe.hnsw_cfg.max_level + 1)]
+    prof, info = device_profile(pipe.compact, "compact_trace")
+    out["compact"] = {"tombstones": n_del, "rows_scored_per_level": scored,
+                      "reclaimed": info["reclaimed"], "free": info["free"],
+                      "capacity": pipe.capacity, "count": count0, **prof}
+    log("lifecycle compact " + json.dumps(out["compact"]))
+    if info["reclaimed"] != n_del or pipe.dead_fraction != 0.0:
+        fail(f"lifecycle: compact reclaimed {info}")
+    count_c = int(pipe.backend.state.count)
+    freed = np.asarray(pipe.backend._free, np.int64)
+    _lib.reset_launches()
+    kept = [pipe.process_batch(tok, ln)[1]["n_insert"]
+            for tok, ln in more_batches[:4]]
+    launches = dict(_lib.LAUNCHES)
+    require_launched("lifecycle batches", launches, ["minhash",
+                                                     "jaccard_cached"])
+    # each insert offers up to B free slots and consumes one per kept row
+    # (the rest wait for the next compact); only the overflow takes fresh
+    n_free, fresh, expect = len(freed), 0, 0
+    for k, (tok, _) in zip(kept, more_batches):
+        offered = min(len(tok), n_free)
+        fresh += max(0, k - offered)
+        expect += min(k, offered)
+        n_free -= offered
+    st = pipe.backend.state
+    reused = int((st.node_level.cpu().numpy()[freed] >= 0).sum())
+    if reused == 0 or reused != expect or int(st.count) != count_c + fresh:
+        fail(f"lifecycle: freed slots not reused below count (reused "
+             f"{reused} of {expect}, count {int(st.count)}, after compact "
+             f"{count_c}, fresh {fresh})")
+    out["reuse"] = {"freed": len(freed), "admitted": int(sum(kept)),
+                    "reused": reused, "count": int(st.count),
+                    "count_after_compact": count_c, "launches": launches}
+    log("lifecycle reuse " + json.dumps(out["reuse"]))
+    ckpt_dir = os.path.join(ROOT, "build", "ckpt_lifecycle")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.save(ckpt_dir, 1)
+    t_save = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(ckpt_dir, "step_00000001",
+                                          "arrays.msgpack"))
+    fresh = FoldPipeline(pipe.cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.restore(ckpt_dir)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    bad = states_equal(fresh.state, pipe.state)
+    if bad:
+        fail(f"lifecycle: restored state differs: {bad}")
+    tok, ln = more_batches[4]
+    if not np.array_equal(fresh.process_batch(tok, ln)[0],
+                          pipe.process_batch(tok, ln)[0]):
+        fail("lifecycle: restored pipeline gives other verdicts")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["checkpoint"] = {"bytes": nbytes, "save_ms": t_save * 1e3,
+                         "restore_ms": t_restore * 1e3}
+    log("lifecycle checkpoint " + json.dumps(out["checkpoint"]))
+    del fresh
+    # cuda vs cpu: delete, compact, and inserts into the freed slots
+    gpu, cpu = parity_pipes
+    live_ids = np.flatnonzero(cpu.state.node_level.numpy() >= 0)[::3]
+    if gpu.delete(live_ids) != cpu.delete(live_ids):
+        fail("lifecycle parity: delete counts differ")
+    cg, cc = gpu.compact(), cpu.compact()
+    if cg["reclaimed"] != cc["reclaimed"] or cg["free"] != cc["free"]:
+        fail(f"lifecycle parity: compact differs: {cg} {cc}")
+    bad = states_equal(gpu.state, cpu.state)
+    if bad:
+        fail(f"lifecycle parity: states differ after compact: {bad}")
+    r = parity_run("lifecycle", gpu, cpu, parity_more)
+    out["parity"] = {"deleted": len(live_ids), "reclaimed": cg["reclaimed"],
+                     "batches_after": len(parity_more), **r}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("lifecycle parity " + json.dumps(out["parity"]))
+    log(f"lifecycle: phase wall {out['phase_s']:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -415,20 +677,29 @@ def main() -> None:
     # data: made in bulk before anything is timed
     corpus = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
     pipe_batches = [corpus.next_batch(512)[:2] for _ in range(PIPE_BATCHES)]
+    more_batches = [corpus.next_batch(512)[:2] for _ in range(5)]
     par_corpus = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
     par_batches = [par_corpus.next_batch(256)[:2] for _ in range(4)]
+    par_more = [par_corpus.next_batch(256)[:2] for _ in range(2)]
 
     tok, ln = pipe_batches[0]
     padded = np.zeros((tok.shape[0], 384), np.uint32)
     padded[:, :tok.shape[1]] = tok
+    t0 = time.perf_counter()
     recs, extra = phase_kernels(dev, (padded, ln))
-    log("kernel checks: all four equal their plain versions (max error 0)")
+    log(f"kernel checks: all four equal their plain versions (max error 0); "
+        f"phase wall {time.perf_counter() - t0:.1f} s")
 
     launches = {}
-    launches["jaccard_nocache"] = phase_parity(par_batches, False, dev)
-    phase_parity(par_batches, True, dev)
-    res, main_launches = phase_pipeline(pipe_batches, card, dev)
+    t0 = time.perf_counter()
+    launches["jaccard_nocache"], _ = phase_parity(par_batches, False, dev)
+    _, parity_pipes = phase_parity(par_batches, True, dev)
+    log(f"parity: phase wall {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res, main_launches, pipe, hnsw_keep = phase_pipeline(pipe_batches, card,
+                                                         dev)
     launches["minhash"] = launches["jaccard_cached"] = main_launches
+    log(f"pipeline: phase wall {time.perf_counter() - t0:.1f} s")
 
     from repro_torch.kernels import ops
     bitmaps = extra["bitmaps"]
@@ -438,6 +709,10 @@ def main() -> None:
     launches["hamming"] = dict(_lib.LAUNCHES)
     if sim.shape != (bitmaps.shape[0],) * 2 or not torch.isfinite(sim).all():
         fail("ops.hamming gave a bad matrix")
+
+    phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
+    phase_options(par_batches, dev)
+    phase_lifecycle(pipe, more_batches, parity_pipes, par_more, dev)
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",

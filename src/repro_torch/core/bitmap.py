@@ -7,6 +7,7 @@ popcounts: px = popcount(A ^ B), 2I = pa + pb - px, 2U = pa + pb + px.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.hashing import bits32, u32
@@ -21,6 +22,7 @@ __all__ = [
     "bitmap_jaccard_dist",
     "minhash_jaccard_sim",
     "hamming_sim",
+    "lane_fraction",
     "pairwise_bitmap_jaccard",
     "pairwise_minhash_jaccard",
     "pairwise_hamming",
@@ -70,9 +72,22 @@ def bitmap_jaccard_dist(a, b, pa=None, pb=None) -> torch.Tensor:
     return 1.0 - bitmap_jaccard_sim(a, b, pa, pb)
 
 
+def lane_fraction(eq: torch.Tensor) -> torch.Tensor:
+    """Fraction of True lanes along the last dim, rounded as the
+    reference's `jnp.mean` rounds it, jitted or eager: the count of equal
+    lanes (exact in f32) times f32(1 / H), one rounding. An IEEE division
+    count / H, which `mean` computes, differs at 62 of the 113 counts at
+    H = 112. The reciprocal is a tensor, so no device turns the product
+    into anything else."""
+    H = eq.shape[-1]
+    recip = torch.tensor(np.float32(1) / np.float32(H), dtype=torch.float32,
+                         device=eq.device)
+    return eq.sum(-1, dtype=torch.int32).to(torch.float32) * recip
+
+
 def minhash_jaccard_sim(sa, sb) -> torch.Tensor:
     """Raw MinHash-Jaccard: fraction of equal lanes."""
-    return (sa == sb).to(torch.float32).mean(-1)
+    return lane_fraction(sa == sb)
 
 
 def hamming_sim(sa, sb) -> torch.Tensor:
@@ -113,7 +128,8 @@ def chunked_pairwise_bitmap_jaccard(qs, db, pq=None, pb=None, *,
 
 
 def pairwise_minhash_jaccard(qs, db) -> torch.Tensor:
-    return (qs[:, None, :] == db[None, :, :]).to(torch.float32).mean(-1)
+    """(Q, H) x (N, H) lanes -> (Q, N) fraction of equal lanes."""
+    return lane_fraction(qs[:, None, :] == db[None, :, :])
 
 
 def pairwise_hamming(qs, db) -> torch.Tensor:

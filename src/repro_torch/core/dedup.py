@@ -30,10 +30,7 @@ __all__ = ["FoldConfig", "FoldPipeline", "StepResult", "fold_signatures",
 
 @dataclasses.dataclass(frozen=True)
 class FoldConfig:
-    """The reference's pipeline config, field for field. Options whose
-    code is not ported yet (verify_minhash, exact_filter,
-    select_heuristic, batched_insert=False) raise NotImplementedError by
-    name when a pipeline is built with them."""
+    """The reference's pipeline config, field for field."""
     # signatures (paper defaults)
     num_hashes: int = 112
     shingle_n: int = 5
@@ -96,13 +93,18 @@ def in_batch_dedup(bitmaps: torch.Tensor, pcs: torch.Tensor, tau: float,
 
 
 def fold_signatures(cfg: FoldConfig | SigSpec, seeds: torch.Tensor,
-                    tokens: torch.Tensor, lengths: torch.Tensor):
+                    tokens: torch.Tensor, lengths: torch.Tensor,
+                    with_bitmaps: bool = True):
     """Step ①, stateless, on the seeds' device: (sigs, bitmaps, pcs).
     Reads cfg.shingle_n, cfg.use_kernel and cfg.T, which a backend's
-    SigSpec carries too (`DedupPipeline.signatures` passes one)."""
+    SigSpec carries too (`DedupPipeline.signatures` passes one).
+    with_bitmaps=False stops at the MinHash lanes (bitmaps, pcs = None), for
+    backends whose SigSpec needs only "sigs"."""
     dev = seeds.device
     sh = shingle_hashes(tokens.to(dev), lengths.to(dev), cfg.shingle_n)
     sigs = ops.minhash(sh, seeds, use_kernel=cfg.use_kernel)
+    if not with_bitmaps:
+        return sigs, None, None
     bitmaps = bm.pack_bitmaps(sigs, T=cfg.T)
     return sigs, bitmaps, bm.popcount(bitmaps)
 

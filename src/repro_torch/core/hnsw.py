@@ -1,6 +1,7 @@
-"""Array-based HNSW — the FOLD index (port of `repro/core/hnsw.py`, the
-parts the main path runs: bitmap-Jaccard metric, batched search, and the
-two-phase batched insert without the selection heuristic).
+"""Array-based HNSW — the FOLD index (port of `repro/core/hnsw.py` for the
+bitmap-Jaccard metric: batched search, the two-phase batched insert and the
+per-doc insert, each with or without the hnswlib selection heuristic, and
+delete / compact).
 
 State layout is the reference's, as tensors on one device:
 
@@ -21,9 +22,15 @@ tie order: `lax.top_k` (lower index first on ties) and the stable
 becomes "first index of the minimum". Out-of-bounds `mode="drop"`
 scatters become writes restricted to the valid rows.
 
-Unlike the reference's functional updates, `hnsw_insert_batch` updates
-the state's tensors IN PLACE (the reference donates the state, so no
-caller may keep using the pre-insert state either way).
+The selection heuristic (`_select_diverse`) is a sequential loop over a
+row's E distance-sorted candidates; it runs vectorised over every row the
+caller holds (a batch's rows at one level, the back-link targets, a chunk
+of nodes under repair) and loops over E, never over rows.
+
+Unlike the reference's functional updates, `hnsw_insert_batch`,
+`hnsw_delete` and `hnsw_compact` update the state's tensors IN PLACE (the
+reference donates the state, so no caller may keep using the old state
+either way).
 """
 from __future__ import annotations
 
@@ -38,14 +45,18 @@ from repro_torch.core.hashing import popc
 from repro_torch.device import resolve_device
 
 __all__ = ["HNSWConfig", "HNSWState", "hnsw_init", "hnsw_grow",
-           "hnsw_insert_batch", "hnsw_search", "sample_levels",
-           "auto_query_chunk", "visited_nbytes", "state_from_numpy",
-           "state_to_numpy"]
+           "hnsw_insert_batch", "hnsw_search", "hnsw_delete", "hnsw_compact",
+           "needs_repair", "sample_levels", "auto_query_chunk", "visited_nbytes",
+           "state_from_numpy", "state_to_numpy"]
 
 _INF = float("inf")
 
 # target for the per-chunk visited state of a batched search
 _VISITED_BUDGET_BYTES = 16 << 20
+
+# words per XOR temporary of the candidate-candidate and repair-pool
+# distances (each word also takes an int64 popcount temporary)
+_PAIR_WORDS = 1 << 25
 
 
 class HNSWConfig(NamedTuple):
@@ -220,13 +231,18 @@ def _sort_take(d: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _dist_rows(cfg: HNSWConfig, q, qpc, vecs, pcs) -> torch.Tensor:
-    """Bitmap-Jaccard distance D = 2 px / (pa + pb + px) from each query
-    q (n, W) to its rows vecs (n or 1, K, W); (n, K) f32."""
-    px = popc(q[:, None, :] ^ vecs).sum(-1)
-    denom = qpc.to(torch.int64)[:, None] + pcs.to(torch.int64) + px
+def _bitmap_dist(px, pa, pb) -> torch.Tensor:
+    """D = 2 px / (pa + pb + px) in f32, 0 where the denominator is 0."""
+    denom = pa.to(torch.int64) + pb.to(torch.int64) + px
     d = 2.0 * px.to(torch.float32) / torch.clamp(denom, min=1).to(torch.float32)
     return torch.where(denom > 0, d, torch.zeros_like(d))
+
+
+def _dist_rows(cfg: HNSWConfig, q, qpc, vecs, pcs) -> torch.Tensor:
+    """Bitmap-Jaccard distance from each query q (n, W) to its rows vecs
+    (n or 1, K, W); (n, K) f32."""
+    px = popc(q[:, None, :] ^ vecs).sum(-1)
+    return _bitmap_dist(px, qpc[:, None], pcs)
 
 
 def _dist_ids(cfg: HNSWConfig, state: HNSWState, q, qpc, ids) -> torch.Tensor:
@@ -400,6 +416,121 @@ def hnsw_search(cfg: HNSWConfig, state: HNSWState, queries: torch.Tensor,
     return _chunked_map(run, (queries, qpcs), query_chunk)
 
 
+# ------------------------------------------------------------------- insert
+def _select_diverse(cfg: HNSWConfig, state: HNSWState, cand_ids, cand_d,
+                    m_l: int) -> torch.Tensor:
+    """hnswlib's neighbor-selection heuristic over R rows of E
+    distance-sorted candidates (-1 / +inf padded): candidate c survives iff
+    d(c, q) < min over already selected s of d(c, s), until m_l are taken.
+    Returns (R, E) ids with non-selected slots -1.
+
+    The candidate-candidate distances are computed for all rows at once
+    (in row chunks bounding the XOR temporary); the selection is the
+    reference's sequential loop over E, stepping every row together."""
+    R, E = cand_ids.shape
+    dev = cand_ids.device
+    safe = torch.clamp(cand_ids, min=0).to(torch.int64)
+    cc = torch.empty((R, E, E), dtype=torch.float32, device=dev)
+    step = max(1, _PAIR_WORDS // max(E * E * state.vectors.shape[1], 1))
+    for s in range(0, R, step):
+        v = state.vectors[safe[s:s + step]]                   # (r, E, W)
+        p = state.pb[safe[s:s + step]]                        # (r, E)
+        px = popc(v[:, :, None, :] ^ v[:, None, :, :]).sum(-1)
+        cc[s:s + step] = _bitmap_dist(px, p[:, :, None], p[:, None, :])
+    selected = torch.zeros((R, E), dtype=torch.bool, device=dev)
+    count = torch.zeros(R, dtype=torch.int32, device=dev)
+    inf = torch.full((R, E), _INF, device=dev)
+    for i in range(E):
+        ok = (cand_ids[:, i] >= 0) & (count < m_l)
+        dsel = torch.where(selected, cc[:, i], inf).min(-1).values
+        take = ok & (cand_d[:, i] < dsel)
+        selected[:, i] = take
+        count += take.to(torch.int32)
+    return torch.where(selected, cand_ids, torch.full_like(cand_ids, -1))
+
+
+def _diverse_rows(cfg: HNSWConfig, state: HNSWState, cand_ids, cand_d,
+                  m_l: int) -> torch.Tensor:
+    """Adjacency rows (R, M0) under the heuristic: the diverse subset of
+    each row's sorted candidates, closest first, -1 padded."""
+    div = _select_diverse(cfg, state, cand_ids, cand_d, m_l)
+    div_d = torch.where(div >= 0, cand_d, torch.full_like(cand_d, _INF))
+    hd, hidx = _sort_take(div_d, cfg.M0)
+    return torch.where(torch.isfinite(hd), torch.gather(div, 1, hidx),
+                       torch.full_like(hidx, -1, dtype=div.dtype))
+
+
+def _closest_rows(cfg: HNSWConfig, cand_ids, cand_d, m_l: int
+                  ) -> torch.Tensor:
+    """Adjacency rows (R, M0) without the heuristic: the m_l closest
+    finite candidates, -1 padded."""
+    kd, ix = _sort_take(cand_d, cfg.M0)
+    keep = torch.gather(cand_ids, 1, ix)
+    slot = torch.arange(cfg.M0, device=cand_ids.device)[None, :]
+    return torch.where((slot < m_l) & torch.isfinite(kd), keep,
+                       torch.full_like(keep, -1))
+
+
+def _prune_row(cfg: HNSWConfig, state: HNSWState, node: int, level: int,
+               cand_ids, cand_d, m_l: int) -> None:
+    """Write node's adjacency row at `level` from its (1, E) sorted
+    candidates: the m_l closest, or the diverse subset under the
+    heuristic. In place."""
+    if cfg.select_heuristic:
+        row = _diverse_rows(cfg, state, cand_ids, cand_d, m_l)
+    else:
+        row = _closest_rows(cfg, cand_ids, cand_d, m_l)
+    state.neighbors[level, node] = row[0]
+
+
+def _insert_per_doc(cfg: HNSWConfig, state: HNSWState, vecs, pcs, levels,
+                    admit, slots) -> HNSWState:
+    """The per-doc path (`batched_insert=False`, the reference's
+    `_insert_one` under a fori_loop): one full top-down traversal per
+    admitted row, in row order, each seeing every earlier row. The loop
+    over rows is the reference's own order; every search inside it runs
+    as the batched code does, on one query."""
+    dev = state.vectors.device
+    adm = admit.cpu().numpy()
+    lvl = levels.cpu().numpy()
+    slot = slots.cpu().numpy()
+    entry, top, count = int(state.entry), int(state.top_level), int(state.count)
+    for i in np.flatnonzero(adm):
+        idx, level = int(slot[i]), int(lvl[i])
+        state.vectors[idx] = vecs[i]
+        state.pb[idx] = pcs[i].to(torch.int32)
+        state.node_level[idx] = level
+        state.dead[idx] = False
+        count = max(count, idx + 1)
+        if entry < 0:
+            entry, top = idx, level
+        else:
+            q, qpc = vecs[i:i + 1], pcs[i:i + 1]
+            cur, curd = _descend(cfg, state, q, qpc, levels[i:i + 1])
+            s_ids, s_d = cur[:, None], curd[:, None]
+            for lev in range(min(level, top), -1, -1):
+                m_l = cfg.M0 if lev == 0 else cfg.M
+                visited = _visited_new(cfg, 1, dev)
+                c_ids, c_d = _search_layer(cfg, state, q, qpc, lev,
+                                           cfg.ef_construction, s_ids, s_d,
+                                           visited)
+                # new nodes link only to LIVE nodes
+                c_ids, c_d = _mask_dead_sorted(state, c_ids, c_d)
+                _prune_row(cfg, state, idx, lev, c_ids, c_d, m_l)
+                # distance-sorted, -1 last: the valid prefix of the first
+                # m_l entries are the back-link targets
+                sel = c_ids[0, :m_l]
+                nv = int((sel >= 0).sum())
+                if nv:
+                    _link_back(cfg, state, idx, lev, sel[:nv], m_l)
+                s_ids, s_d = c_ids[:, :1], c_d[:, :1]
+            if level > top:
+                entry, top = idx, level
+        state = state._replace(entry=_scalar(entry, dev),
+                               top_level=_scalar(top, dev))
+    return state._replace(count=_scalar(count, dev))
+
+
 # ----------------------------------------------- two-phase batched insert
 def _pairwise_dists(cfg: HNSWConfig, vecs, pcs, chunk: int) -> torch.Tensor:
     """(B, B) distances among the batch rows, chunked on the query dim."""
@@ -465,12 +596,15 @@ def _discover_candidates(cfg: HNSWConfig, state: HNSWState, vecs, pcs,
     return _chunked_map(run, operands, chunk)
 
 
-def _merge_candidates(cfg: HNSWConfig, levels, admit, slots, cand_ids,
-                      cand_d, pair_d):
+def _merge_candidates(cfg: HNSWConfig, state: HNSWState, levels, admit,
+                      slots, cand_ids, cand_d, pair_d):
     """Merge each row's phase-A candidates with the batch's EARLIER
     admitted rows present at that level, and derive the new node's
     adjacency rows `fwd` and its back-link targets `sel`, both
-    (B, L+1, M0), for the whole batch at once."""
+    (B, L+1, M0), for the whole batch at once. `state` must be the
+    slot-written state: the heuristic reads the batch rows' vectors.
+    Under the heuristic `fwd` is computed only for the admitted rows that
+    reach the level (no other row's `fwd` is read)."""
     B = slots.shape[0]
     E = cand_ids.shape[-1]
     dev = slots.device
@@ -489,8 +623,16 @@ def _merge_candidates(cfg: HNSWConfig, levels, admit, slots, cand_ids,
         m_d, ix = _sort_take(cat_d, E)
         m_ids = torch.where(torch.isfinite(m_d), torch.gather(cat_ids, 1, ix),
                             torch.full_like(ix, -1, dtype=torch.int32))
-        fwd = torch.where((m0_slot < m_l) & torch.isfinite(m_d[:, :cfg.M0]),
-                          m_ids[:, :cfg.M0], torch.full_like(m_ids[:, :cfg.M0], -1))
+        if cfg.select_heuristic:
+            fwd = torch.full((B, cfg.M0), -1, dtype=torch.int32, device=dev)
+            rows = torch.nonzero(admit & (levels >= lev)).squeeze(1)
+            if rows.numel():
+                fwd[rows] = _diverse_rows(cfg, state, m_ids[rows], m_d[rows],
+                                          m_l)
+        else:
+            fwd = torch.where(
+                (m0_slot < m_l) & torch.isfinite(m_d[:, :cfg.M0]),
+                m_ids[:, :cfg.M0], torch.full_like(m_ids[:, :cfg.M0], -1))
         sel_levels.append(m_ids[:, :cfg.M0])
         fwd_levels.append(fwd)
     return torch.stack(fwd_levels, dim=1), torch.stack(sel_levels, dim=1)
@@ -498,19 +640,28 @@ def _merge_candidates(cfg: HNSWConfig, levels, admit, slots, cand_ids,
 
 def _link_back(cfg: HNSWConfig, state: HNSWState, new_id: int, level: int,
                sel_ids: torch.Tensor, m_l: int) -> None:
-    """Add new_id into each selected neighbor's row at `level`, keeping the
-    m_l closest; sel_ids (S,) are valid and distinct. In place."""
+    """Add new_id into each selected neighbor's row at `level`; sel_ids
+    (S,) are valid and distinct. In place.
+
+    hnswlib's mutuallyConnectNewElement: while a row has room the new id
+    is merged in (the closest m_l of the finite candidates); once the row
+    would overflow and cfg.select_heuristic is on, the row is re-selected
+    with the heuristic over its candidates sorted by distance (stable)."""
     S = sel_ids.shape[0]
     idx = sel_ids.to(torch.int64)
     rows = state.neighbors[level, idx]                          # (S, M0)
     cand = torch.cat([rows, torch.full((S, 1), new_id, dtype=torch.int32,
                                        device=rows.device)], dim=1)
     d = _dist_ids(cfg, state, state.vectors[idx], state.pb[idx], cand)
-    keep_d, ix = _sort_take(d, cfg.M0)
-    keep = torch.gather(cand, 1, ix)
-    slot = torch.arange(cfg.M0, device=rows.device)[None, :]
-    state.neighbors[level, idx] = torch.where(
-        (slot < m_l) & torch.isfinite(keep_d), keep, torch.full_like(keep, -1))
+    new_rows = _closest_rows(cfg, cand, d, m_l)
+    if cfg.select_heuristic:
+        # only overfull rows take the heuristic's rows: score only them
+        over = torch.nonzero((cand >= 0).sum(1) > m_l).squeeze(1)
+        if over.numel():
+            cd, order = torch.sort(d[over], dim=1, stable=True)
+            new_rows[over] = _diverse_rows(
+                cfg, state, torch.gather(cand[over], 1, order), cd, m_l)
+    state.neighbors[level, idx] = new_rows
 
 
 def _commit_batch(cfg: HNSWConfig, state: HNSWState, levels, admit, slots,
@@ -560,18 +711,12 @@ def hnsw_insert_batch(cfg: HNSWConfig, state: HNSWState, vecs: torch.Tensor,
 
     vecs (B, W) int32 bits; pcs (B,) int32; levels (B,) pre-sampled;
     mask (B,) bool. seed_ids: optional (B, S) step-③ neighbor ids seeding
-    candidate discovery. free_slots: optional (F,) reclaimed slot ids,
+    candidate discovery (the per-doc path, cfg.batched_insert=False,
+    ignores them). free_slots: optional (F,) reclaimed slot ids,
     -1 padded, consumed first. Updates `state`'s tensors in place and
     returns (state, n_inserted) with n_inserted a 0-dim device tensor
     (< mask.sum() when the index is full)."""
     _check_supported(cfg)
-    if not cfg.batched_insert:
-        raise NotImplementedError(
-            "batched_insert=False (the per-doc _insert_one path) is not "
-            "ported yet")
-    if cfg.select_heuristic:
-        raise NotImplementedError(
-            "select_heuristic=True (_select_diverse) is not ported yet")
     dev = state.vectors.device
     mask = torch.as_tensor(mask, device=dev).to(torch.bool)
     levels = torch.as_tensor(levels, device=dev).to(torch.int32)
@@ -591,6 +736,11 @@ def hnsw_insert_batch(cfg: HNSWConfig, state: HNSWState, vecs: torch.Tensor,
     admit = mask & (slots >= 0) & (slots < cfg.capacity)
     n_ins = admit.sum(dtype=torch.int32)
     new_count = count0 + (admit & fresh).sum(dtype=torch.int32)
+
+    if not cfg.batched_insert:
+        # the per-doc path ignores seed_ids, as the reference's does
+        return _insert_per_doc(cfg, state, vecs, pcs, levels, admit,
+                               slots), n_ins
 
     chunk = (cfg.query_chunk if cfg.query_chunk is not None
              else auto_query_chunk(cfg))
@@ -613,8 +763,119 @@ def hnsw_insert_batch(cfg: HNSWConfig, state: HNSWState, vecs: torch.Tensor,
     state.node_level[tgt] = levels[rows]
     state.dead[tgt] = False
     state = state._replace(count=new_count)
-    fwd, sel = _merge_candidates(cfg, levels, admit, slots, cand_ids, cand_d,
-                                 pair_d)
+    fwd, sel = _merge_candidates(cfg, state, levels, admit, slots, cand_ids,
+                                 cand_d, pair_d)
     state = _commit_batch(cfg, state, levels, admit, slots, fwd, sel)
     return state, n_ins
 
+
+
+# ------------------------------------------------------- delete & compact
+def hnsw_delete(cfg: HNSWConfig, state: HNSWState, ids
+                ) -> tuple[HNSWState, torch.Tensor]:
+    """Tombstone node ids (D,), -1 padded; out-of-range, unused and
+    already-dead ids are ignored (duplicate live ids in one call would be
+    double-counted: callers dedup). Dead nodes stay navigable but are
+    masked from search results and new adjacency; their slots are
+    reusable only after hnsw_compact. In place; returns (state,
+    n_newly_dead) as a 0-dim device tensor."""
+    ids = torch.as_tensor(ids, device=state.dead.device).to(torch.int32)
+    safe = torch.clamp(ids, 0, cfg.capacity - 1).to(torch.int64)
+    valid = ((ids >= 0) & (ids < cfg.capacity)
+             & (state.node_level[safe] >= 0) & ~state.dead[safe])
+    state.dead[safe[valid]] = True
+    return state, valid.sum(dtype=torch.int32)
+
+
+def needs_repair(state: HNSWState, live: torch.Tensor, lev: int
+                 ) -> torch.Tensor:
+    """Nodes whose level-`lev` row references a tombstone: the only rows
+    `hnsw_compact` rebuilds (every other row comes back unchanged), as a
+    1-D int64 index tensor."""
+    rows = state.neighbors[lev]
+    nb_dead = (state.dead[torch.clamp(rows, min=0).to(torch.int64)]
+               & (rows >= 0)).any(1)
+    return torch.nonzero(live & (state.node_level >= lev) & nb_dead
+                         ).squeeze(1)
+
+
+def _repair_rows(cfg: HNSWConfig, state: HNSWState, live, lev: int,
+                 m_l: int, nodes: torch.Tensor) -> torch.Tensor:
+    """Rebuilt level-`lev` rows (c, M0) for `nodes`: the candidate pool is
+    each node's live neighbors plus its live neighbors-of-neighbors
+    (hnswlib's repairConnectionsForUpdate), deduplicated, the closest E
+    kept, then selected by the insert-time policy."""
+    K = cfg.M0 * (1 + cfg.M0)
+    E = min(K, max(cfg.ef_construction, cfg.M0))
+    c = nodes.shape[0]
+    row = state.neighbors[lev, nodes]                          # (c, M0)
+    hops = state.neighbors[lev, torch.clamp(row, min=0).to(torch.int64)]
+    hops = torch.where((row >= 0)[:, :, None], hops, torch.full_like(hops, -1))
+    pool = torch.cat([row, hops.reshape(c, -1)], dim=1)        # (c, K)
+    ok = ((pool >= 0) & live[torch.clamp(pool, min=0).to(torch.int64)]
+          & (pool != nodes[:, None]))
+    srt = torch.sort(torch.where(ok, pool, torch.full_like(pool, -1)),
+                     dim=1).values
+    dup = torch.cat([torch.zeros((c, 1), dtype=torch.bool, device=pool.device),
+                     srt[:, 1:] == srt[:, :-1]], dim=1)
+    pool = torch.where(dup, torch.full_like(srt, -1), srt)
+    d = _dist_ids(cfg, state, state.vectors[nodes], state.pb[nodes], pool)
+    c_d, ix = _sort_take(d, E)
+    c_ids = torch.where(torch.isfinite(c_d), torch.gather(pool, 1, ix),
+                        torch.full_like(ix, -1, dtype=pool.dtype))
+    if cfg.select_heuristic:
+        return _diverse_rows(cfg, state, c_ids, c_d, m_l)
+    return _closest_rows(cfg, c_ids, c_d, m_l)
+
+
+def hnsw_compact(cfg: HNSWConfig, state: HNSWState
+                 ) -> tuple[HNSWState, torch.Tensor]:
+    """Online compaction: rebuild every live row that references a
+    tombstone (per level, from its live neighbors-of-neighbors), then
+    unlink the dead so their slots become free-listed (node_level -1
+    below the count mark), re-elect the entry if it died or was
+    out-ranked, and lower `count` only when the tail itself died. In
+    place; returns (state, n_reclaimed) as a 0-dim device tensor.
+
+    The reference scores the candidate pool of every node at every level
+    and keeps the old row where nothing needs repair; only the rows that
+    `needs_repair` selects are scored here, in chunks bounding the
+    (chunk, K, W) XOR temporary: the same state."""
+    dev = state.vectors.device
+    dead0 = state.dead.clone()
+    live = (state.node_level >= 0) & ~dead0
+    K = cfg.M0 * (1 + cfg.M0)
+    chunk = max(1, _PAIR_WORDS // (K * cfg.words))
+    for lev in range(cfg.max_level + 1):
+        m_l = cfg.M0 if lev == 0 else cfg.M
+        nodes = needs_repair(state, live, lev)
+        # each level's repair reads only that level's rows: computing all
+        # of them before writing keeps every read on the old rows
+        new = [_repair_rows(cfg, state, live, lev, m_l, nodes[s:s + chunk])
+               for s in range(0, nodes.shape[0], chunk)]
+        if new:
+            state.neighbors[lev, nodes] = torch.cat(new)
+    # unlink the dead: clear their rows and drop any stale reference
+    for lev in range(cfg.max_level + 1):
+        nb = state.neighbors[lev]
+        nb[dead0] = -1
+        ref_dead = dead0[torch.clamp(nb, min=0).to(torch.int64)] & (nb >= 0)
+        nb.masked_fill_(ref_dead, -1)
+    state.node_level.masked_fill_(dead0, -1)
+    state.dead.zero_()
+    ar = torch.arange(cfg.capacity, dtype=torch.int32, device=dev)
+    lv = torch.where(live, state.node_level, torch.full_like(ar, -1))
+    top = lv.max()
+    esafe = torch.clamp(state.entry, 0, cfg.capacity - 1).to(torch.int64)
+    keep_entry = ((state.entry >= 0) & live[esafe]
+                  & (state.node_level[esafe] >= top))
+    first_top = torch.where(lv == top, ar, cfg.capacity).min()
+    entry = torch.where(top >= 0, torch.where(keep_entry, state.entry,
+                                              first_top),
+                        torch.full_like(state.entry, -1)).to(torch.int32)
+    count = torch.where(live, ar + 1, torch.zeros_like(ar)).max()
+    state = state._replace(entry=entry.reshape(()),
+                           top_level=torch.where(top >= 0, top,
+                                                 -1).to(torch.int32).reshape(()),
+                           count=count.to(torch.int32).reshape(()))
+    return state, dead0.sum(dtype=torch.int32)

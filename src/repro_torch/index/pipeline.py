@@ -3,21 +3,44 @@
 
 Owns step ① signature generation, ② in-batch cleanup (greedy-leader sweep
 over the backend's similarity matrix) and ④ the threshold filter, plus the
-Fig. 7 per-stage timers; the backend contributes ③ search and ⑤ insert.
-`process_batch` is the blocking composition: each stage ends in a device
-synchronisation so its wall-clock time is the stage's own.
+Fig. 7 per-stage timers, the exact-duplicate front door
+(`FoldConfig.exact_filter`) and the read-only `query`; the backend
+contributes ③ search and ⑤ insert and the capacity, snapshot and deletion
+lifecycle, which the pipeline delegates. `process_batch` is the blocking
+composition: each stage ends in a device synchronisation so its
+wall-clock time is the stage's own.
+
+Not ported yet: the INDEX_FIRST ordering and the `fused_step` hook; only
+the `prefix_filter` and `hnsw_sharded` backends use them.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Tuple
+from typing import TYPE_CHECKING, Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.index.protocol import DedupBackend, SigBatch, StepResult
 
-__all__ = ["DedupPipeline", "greedy_leader", "greedy_leader_split"]
+if TYPE_CHECKING:
+    from repro_torch.index.exact import ExactDupFilter
+
+__all__ = ["DedupPipeline", "QueryResult", "greedy_leader",
+           "greedy_leader_split"]
+
+
+class QueryResult(NamedTuple):
+    """Read-only search verdicts (DedupPipeline.query — nothing inserted),
+    as host numpy arrays.
+
+    is_dup (B,) bool; ids (B, k) int32 (-1 = none; column 0 is the
+    exact-match ref id for exact_hit rows); sims (B, k) f32 (1.0 in column
+    0 for exact hits); exact_hit (B,) bool."""
+    is_dup: Any
+    ids: Any
+    sims: Any
+    exact_hit: Any
 
 
 def greedy_leader_split(sim: torch.Tensor, tau: float,
@@ -60,14 +83,16 @@ class DedupPipeline:
 
     def __init__(self, backend: DedupBackend):
         from repro_torch.core.hashing import hash_seeds
-        if getattr(getattr(backend, "cfg", None), "exact_filter", False):
-            raise NotImplementedError(
-                "exact_filter (the content-hash front end) is not ported yet")
         self.backend = backend
         self.device = backend.device
         spec = backend.sig_spec
         self._spec = spec
         self._seeds = hash_seeds(spec.num_hashes, spec.seed, self.device)
+        # the exact-duplicate front door, opt-in through the shared config
+        self.exact: "Optional[ExactDupFilter]" = None
+        if getattr(getattr(backend, "cfg", None), "exact_filter", False):
+            from repro_torch.index.exact import ExactDupFilter
+            self.exact = ExactDupFilter()
 
     # -- lifecycle (delegated) ----------------------------------------------
     @property
@@ -82,15 +107,47 @@ class DedupPipeline:
         self.backend.grow(new_capacity)
         return self
 
+    # deletion lifecycle (the protocol's DELETION CONTRACT; backends with
+    # supports_deletion=False raise from delete)
+    @property
+    def deleted(self) -> int:
+        return self.backend.deleted
+
+    @property
+    def dead_fraction(self) -> float:
+        return self.backend.dead_fraction
+
+    def delete(self, ids: Any) -> int:
+        return self.backend.delete(ids)
+
+    def compact(self) -> dict:
+        return self.backend.compact()
+
+    def save(self, ckpt_dir: str, step: int,
+             async_write: bool = False) -> None:
+        self.backend.save(ckpt_dir, step, async_write=async_write)
+        if self.exact is not None:
+            # host-cheap and loss-safe: written synchronously even when the
+            # backend's arrays go out asynchronously
+            self.exact.save(ckpt_dir, step)
+
+    def restore(self, ckpt_dir: str, step: int | None = None) -> int:
+        step = self.backend.restore(ckpt_dir, step)
+        if self.exact is not None:
+            self.exact.load(ckpt_dir, step)
+        return step
+
     def stats_schema(self) -> tuple[str, ...]:
+        extra = ("n_exact_hits",) if self.exact is not None else ()
         return (("t_signature", "t_in_batch", "t_search", "t_insert",
                  "n_batch_drop", "n_index_drop", "n_insert", "n_overflow",
-                 "count") + tuple(self.backend.stats_schema()))
+                 "count") + extra + tuple(self.backend.stats_schema()))
 
     # -- step ① -------------------------------------------------------------
     def signatures(self, tokens: Any, lengths: Any) -> SigBatch:
-        """shingle → MinHash → bitmap (+ popcounts) on the pipeline's
-        device. tokens (B, L) uint32 ids, numpy or tensor."""
+        """shingle → MinHash (→ bitmap + popcounts when the backend's
+        SigSpec needs them) on the pipeline's device. tokens (B, L) uint32
+        ids, numpy or tensor."""
         # deferred: repro_torch.core.dedup imports this module
         from repro_torch.core.dedup import fold_signatures
         if not isinstance(tokens, torch.Tensor):
@@ -99,8 +156,9 @@ class DedupPipeline:
         lengths = torch.as_tensor(np.asarray(lengths, np.int32)
                                   if not isinstance(lengths, torch.Tensor)
                                   else lengths)
-        sigs, bitmaps, pcs = fold_signatures(self._spec, self._seeds,
-                                             tokens, lengths)
+        sigs, bitmaps, pcs = fold_signatures(
+            self._spec, self._seeds, tokens, lengths,
+            with_bitmaps="bitmaps" in self._spec.needs)
         return SigBatch(sigs=sigs, bitmaps=bitmaps, pcs=pcs)
 
     # -- steps ②-⑤ ----------------------------------------------------------
@@ -143,28 +201,110 @@ class DedupPipeline:
         return StepResult(keep=keep, keep_in_batch=keep_in_batch,
                           ids=ids, sims=sims)
 
+    def _exact_hits(self, tokens: Any, lengths: Any
+                    ) -> Tuple[list, np.ndarray, np.ndarray]:
+        """(hashes, hit, refs) for the exact front door: hit marks rows
+        whose content hash is already in the filter OR appeared earlier in
+        this batch (same tokens, same signature, same eventual verdict)."""
+        from repro_torch.index.exact import batch_hashes
+        assert self.exact is not None
+        hashes = batch_hashes(tokens, lengths)
+        B = len(hashes)
+        hit = np.zeros(B, bool)
+        refs = np.full(B, -1, np.int64)
+        seen: set[int] = set()
+        for i, h in enumerate(hashes):
+            r = self.exact.lookup(h)
+            if r is not None:
+                hit[i] = True
+                refs[i] = r
+            elif h in seen:
+                hit[i] = True
+            else:
+                seen.add(h)
+        return hashes, hit, refs
+
     def process_batch(self, tokens: Any,
                       lengths: Any) -> tuple[np.ndarray, dict]:
         """Dedup one incoming batch. Returns (keep_mask (B,) numpy, stats)
-        with per-stage times and admit/drop accounting."""
+        with per-stage times and admit/drop accounting. With the exact
+        front door on, content-hash hits are never admitted and are not
+        counted as batch or index drops; an all-hit batch pays no device
+        work at all."""
         stats: dict[str, Any] = {}
         count0 = self.backend.inserted
 
+        hashes = None
+        B = tokens.shape[0]
+        hit = np.zeros(B, bool)
+        if self.exact is not None:
+            hashes, hit, _refs = self._exact_hits(tokens, lengths)
+            n_hit = int(hit.sum())
+            if n_hit:
+                self.exact.record_hit(n_hit)
+            stats["n_exact_hits"] = n_hit
+            if hit.all():
+                # verbatim-replay fast path: no signatures, no search
+                for key in ("t_signature", "t_in_batch", "t_search",
+                            "t_insert"):
+                    stats[key] = 0.0
+                stats.update(n_batch_drop=0, n_index_drop=0, n_insert=0,
+                             count=count0, n_overflow=0)
+                return np.zeros(B, bool), stats
+
         t0 = time.perf_counter()
         sig = self.signatures(tokens, lengths)
-        _ready(sig.pcs)
+        _ready(sig.pcs if sig.pcs is not None else sig.sigs)
         stats["t_signature"] = time.perf_counter() - t0
 
-        res = self.dedup_step(sig, timers=stats)
+        valid = torch.from_numpy(~hit) if hit.any() else None
+        res = self.dedup_step(sig, valid=valid, timers=stats)
 
         keep = res.keep.cpu().numpy()
         keep_in_batch = res.keep_in_batch.cpu().numpy()
-        stats["n_batch_drop"] = int((~keep_in_batch).sum())
-        stats["n_index_drop"] = int((keep_in_batch & ~keep).sum())
+        if hashes is not None:
+            for i in np.flatnonzero(keep):
+                self.exact.add(hashes[int(i)])
+        stats["n_batch_drop"] = int((~keep_in_batch & ~hit).sum())
+        stats["n_index_drop"] = int((keep_in_batch & ~keep & ~hit).sum())
         stats["n_insert"] = int(keep.sum())
         stats["count"] = self.backend.inserted
         # rows whose verdict claims admission but which the backend did not
-        # land; the built-in backend refuses such a batch, so this stays 0
+        # land; the built-in backends refuse such a batch, so this stays 0
         stats["n_overflow"] = max(
             0, stats["n_insert"] - (stats["count"] - count0))
         return keep, stats
+
+    # -- read-only query ----------------------------------------------------
+    def query(self, tokens: Any, lengths: Any = None) -> QueryResult:
+        """Search-only "is this a dup?" verdicts; NOTHING is inserted.
+        Exact front-door hits skip the search; other rows pay step ① and
+        step ③ against the current corpus and the tau_index threshold."""
+        B = tokens.shape[0]
+        if lengths is None:
+            lengths = np.full(B, tokens.shape[1], np.int32)
+        hit = np.zeros(B, bool)
+        refs = np.full(B, -1, np.int64)
+        if self.exact is not None:
+            _hashes, hit, refs = self._exact_hits(tokens, lengths)
+            if hit.any():
+                self.exact.record_hit(int(hit.sum()))
+        k = max(1, int(getattr(getattr(self.backend, "cfg", None),
+                               "k", 1) or 1))
+        if B and hit.all():
+            ids = np.full((B, k), -1, np.int32)
+            ids[:, 0] = refs.astype(np.int32)
+            sims = np.zeros((B, k), np.float32)
+            sims[:, 0] = 1.0
+            return QueryResult(is_dup=np.ones(B, bool), ids=ids, sims=sims,
+                               exact_hit=hit)
+        sig = self.signatures(tokens, lengths)
+        ids_t, sims_t = self.backend.search(sig)
+        ids = ids_t.cpu().numpy().astype(np.int32)
+        sims = sims_t.cpu().numpy().astype(np.float32)
+        is_dup = (sims >= np.float32(self.backend.tau_index)).any(axis=-1)
+        if hit.any():
+            is_dup = is_dup | hit
+            ids[hit, 0] = refs[hit].astype(np.int32)
+            sims[hit, 0] = 1.0
+        return QueryResult(is_dup=is_dup, ids=ids, sims=sims, exact_hit=hit)

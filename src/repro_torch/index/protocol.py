@@ -70,7 +70,34 @@ class DedupBackend(Protocol):
                                       never silently drop a keep-row —
                                       refuse the batch instead.
       grow(new_capacity)              re-allocate, graph kept exactly
+      save(dir, step, async_write=False) / restore(dir, step=None) -> step
       stats_schema() / stats()
+
+    Capability flags (class attributes with defaults):
+
+      supports_growth / supports_snapshots  (default True)
+      supports_deletion                     (default False): the backend
+          implements the DELETION CONTRACT below
+      track_slots                           (default False): every insert
+          logs the slot ids it assigned to admitted rows, in admission
+          order, for pop_slot_log() (repro_torch.lifecycle sets it)
+
+    DELETION CONTRACT (supports_deletion backends):
+
+      delete(ids) -> int      remove slot ids from future verdicts; unknown,
+                              out-of-range, negative, duplicate and
+                              already-deleted ids are ignored; returns the
+                              number newly deleted. A resubmitted copy of a
+                              deleted doc must be admitted again, and
+                              `inserted` counts live docs only.
+      deleted: int            cumulative deletes (default 0)
+      dead_fraction: float    deleted-but-unreclaimed share of capacity
+                              (default 0.0); host-cheap, no device sync
+      compact() -> dict       reclaim tombstones (default {"reclaimed": 0})
+      pop_slot_log(n=None)    drain up to n pending per-insert slot logs
+
+    save/restore round-trip deletion state: tombstones and free slots
+    survive a snapshot.
     """
     name: str
     order: str
@@ -96,10 +123,35 @@ class DedupBackend(Protocol):
     def insert(self, sig: SigBatch, keep: Any,
                search_ids: Any | None = None) -> Any: ...
     def grow(self, new_capacity: int) -> None: ...
+    def save(self, ckpt_dir: str, step: int,
+             async_write: bool = False) -> None: ...
+    def restore(self, ckpt_dir: str, step: int | None = None) -> int: ...
     def stats_schema(self) -> tuple[str, ...]: ...
     def stats(self) -> dict: ...
 
+    # ---- deletion contract defaults
+    @property
+    def deleted(self) -> int:
+        return 0
+
+    @property
+    def dead_fraction(self) -> float:
+        return 0.0
+
     def delete(self, ids: Any) -> int:
         raise NotImplementedError(
-            f"backend {getattr(self, 'name', type(self).__name__)!r}: "
-            f"delete is not ported yet (supports_deletion=False)")
+            f"backend {getattr(self, 'name', type(self).__name__)!r} does "
+            f"not support deletion (supports_deletion=False)")
+
+    def compact(self) -> dict:
+        return {"reclaimed": 0}
+
+    def pop_slot_log(self, n: int | None = None) -> list:
+        """Drain up to n (None = all) per-insert slot logs, oldest first."""
+        q = getattr(self, "_slots_q", None)
+        if not q:
+            return []
+        n = len(q) if n is None else min(n, len(q))
+        out, rest = list(q[:n]), list(q[n:])
+        setattr(self, "_slots_q", rest)
+        return out

@@ -1,7 +1,7 @@
 """String-keyed backend registry (port of `repro/index/registry.py`).
 
 Factories take the shared `FoldConfig` plus keyword options; the
-built-in `hnsw` backend registers on first use. Keys the reference has
+built-in `hnsw` and `brute` backends register on first use. Keys the reference has
 but the port does not yet are refused by name.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ __all__ = ["register", "make", "make_pipeline", "available"]
 Factory = Callable[..., "DedupBackend"]
 
 _REGISTRY: Dict[str, Factory] = {}
-_NOT_PORTED = ("hnsw_raw", "brute", "hnsw_sharded", "dpk", "flat_lsh",
+_NOT_PORTED = ("hnsw_raw", "hnsw_sharded", "dpk", "flat_lsh",
                "prefix_filter")
 
 

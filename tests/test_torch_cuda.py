@@ -206,3 +206,100 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     ops.hamming(x, x)
     ops.minhash(x, x[0])
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [7, 31, 112, 128])
+def test_cuda_minhash_jaccard_rounds_as_cpu(cuda, h):
+    """pairwise_minhash_jaccard and minhash_jaccard_sim on the card equal
+    the CPU's, count * f32(1/H), at every lane count 0..H; the exact-verify
+    rescoring equals numpy's float64 mean cast to f32 on both."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.index.backends.hnsw import _lane_fraction_f64
+    rng = np.random.default_rng(h)
+    a = words(rng, (1, h))
+    b = np.repeat(a, h + 1, axis=0) ^ np.uint32(1)
+    for i in range(h + 1):
+        lanes = rng.permutation(h)[:i]
+        b[i, lanes] = a[0, lanes]
+    ta, tb = to_t(a), to_t(b)
+    exp = np.arange(h + 1, dtype=np.float32) * (np.float32(1) / np.float32(h))
+    got = bm.pairwise_minhash_jaccard(ta.to(cuda), tb.to(cuda)).cpu()
+    assert torch.equal(got, bm.pairwise_minhash_jaccard(ta, tb))
+    np.testing.assert_array_equal(got.numpy()[0], exp)
+    rows = ta.repeat(h + 1, 1)
+    assert torch.equal(bm.minhash_jaccard_sim(rows.to(cuda), tb.to(cuda)).cpu(),
+                       bm.minhash_jaccard_sim(rows, tb))
+    eq = rows == tb
+    f64 = _lane_fraction_f64(eq.to(cuda)).cpu()
+    assert torch.equal(f64, _lane_fraction_f64(eq))
+    np.testing.assert_array_equal(
+        f64.numpy(), (a == b).mean(-1).astype(np.float32))
+
+
+def _cc_batches(n, size, seed=0):
+    from repro_torch.data.corpus import DATASET_PRESETS, SyntheticCorpus
+    import dataclasses
+    src = SyntheticCorpus(dataclasses.replace(DATASET_PRESETS["common_crawl"],
+                                              seed=seed))
+    return [src.next_batch(size)[:2] for _ in range(n)]
+
+
+def _same_state(a, b):
+    from repro_torch.core.hnsw import state_to_numpy
+    na, nb = state_to_numpy(a), state_to_numpy(b)
+    return [k for k in na if not np.array_equal(na[k], nb[k])]
+
+
+@pytest.mark.gpu
+def test_cuda_brute_matches_cpu(cuda, monkeypatch):
+    """brute on the card equals brute on the CPU (keep masks, ids and sims
+    bit for bit) across chunk boundaries, with deletes and free-row reuse."""
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.index import make_pipeline
+    from repro_torch.index.backends import brute
+    monkeypatch.setattr(brute, "_CHUNK", 48)
+    cfg = FoldConfig(capacity=512, tau=0.7, threshold_space="minhash")
+    pipes = [make_pipeline("brute", cfg, device=d)  # foldlint: disable=F131
+             for d in (cuda, "cpu")]
+    for p in pipes:
+        p.backend.track_slots = True
+    batches = _cc_batches(4, 64)
+    for i, (tok, ln) in enumerate(batches + batches[:1]):
+        keeps = [p.process_batch(tok, ln)[0] for p in pipes]
+        assert np.array_equal(*keeps), i
+        res = [p.query(tok, ln) for p in pipes]
+        assert np.array_equal(res[0].ids, res[1].ids)
+        assert np.array_equal(res[0].sims, res[1].sims)
+        slots = [np.concatenate(p.backend.pop_slot_log() or [np.empty(0)])
+                 for p in pipes]
+        assert np.array_equal(*slots)
+        if i == 1:
+            assert pipes[0].delete(slots[0][::2]) == pipes[1].delete(slots[1][::2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [{}, {"select_heuristic": True},
+                                  {"batched_insert": False},
+                                  {"verify_minhash": True},
+                                  {"exact_filter": True}],
+                         ids=["default", "heuristic", "per_doc", "verify",
+                              "exact"])
+def test_cuda_options_and_compact_match_cpu(cuda, opts):
+    """FoldPipeline with each option on the card equals it on the CPU
+    (keep masks and state) through delete, compact and free-slot reuse."""
+    from repro_torch.core.dedup import FoldConfig, FoldPipeline
+    cfg = FoldConfig(capacity=512, M=8, M0=16, ef_construction=32,
+                     ef_search=32, **opts)
+    pipes = [FoldPipeline(cfg, device=d) for d in (cuda, "cpu")]
+    batches = _cc_batches(3, 48)
+    for i, (tok, ln) in enumerate(batches + batches[:1]):
+        keeps = [p.process_batch(tok, ln)[0] for p in pipes]
+        assert np.array_equal(*keeps), i
+        assert not _same_state(pipes[0].state, pipes[1].state), i
+        if i == 1:
+            live = np.flatnonzero(pipes[1].state.node_level.numpy() >= 0)
+            assert pipes[0].delete(live[::3]) == pipes[1].delete(live[::3])
+            out = [p.compact() for p in pipes]
+            assert out[0]["reclaimed"] == out[1]["reclaimed"] > 0
+            assert not _same_state(pipes[0].state, pipes[1].state)

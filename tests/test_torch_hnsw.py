@@ -160,17 +160,31 @@ def test_helpers_match_jax():
                                   J.sample_levels(1000, CFG, 9))
 
 
-def test_unported_paths_raise_by_name():
+def test_unported_paths_raise_by_name(built):
+    """The per-doc path (`_insert_one`) and the selection heuristic, once
+    refused by name, now build the JAX package's graph into a JAX-built
+    index; the `hnsw_raw` metrics are still refused by name."""
+    vecs, pcs = built["vecs"][N_BUILD:], built["pcs"][N_BUILD:]
+    B = len(vecs)
+    levels = J.sample_levels(B, CFG, seed=5)
+    mask = np.random.default_rng(9).random(B) < 0.6
+    for jcfg in (CFG._replace(batched_insert=False),
+                 CFG._replace(select_heuristic=True)):
+        jst, jn = J.hnsw_insert_batch(
+            jcfg, _jstate(built["state"]), jnp.asarray(vecs),
+            jnp.asarray(pcs), jnp.asarray(levels), jnp.asarray(mask))
+        tst, tn = T.hnsw_insert_batch(
+            T.HNSWConfig(**jcfg._asdict()),
+            T.state_from_numpy(built["state"], "cpu"), _t(vecs),
+            torch.from_numpy(pcs.copy()), torch.from_numpy(levels),
+            torch.from_numpy(mask))
+        assert int(tn) == int(jn) == int(mask.sum())
+        got = T.state_to_numpy(tst)
+        for field in J.HNSWState._fields:
+            np.testing.assert_array_equal(
+                got[field], np.asarray(getattr(jst, field)), err_msg=field)
     tcfg = T.HNSWConfig(**CFG._asdict())
     x = torch.zeros((2, 32), dtype=torch.int32)
-    args = (x, torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32),
-            torch.ones(2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="_insert_one"):
-        T.hnsw_insert_batch(tcfg._replace(batched_insert=False),
-                            T.hnsw_init(tcfg, "cpu"), *args)
-    with pytest.raises(NotImplementedError, match="select_heuristic"):
-        T.hnsw_insert_batch(tcfg._replace(select_heuristic=True),
-                            T.hnsw_init(tcfg, "cpu"), *args)
     with pytest.raises(NotImplementedError, match="hnsw_raw"):
         T.hnsw_search(tcfg._replace(metric="hamming"), T.hnsw_init(tcfg, "cpu"),
                       x, k=2)

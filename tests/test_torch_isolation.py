@@ -1,5 +1,7 @@
 """The port stands alone: `repro_torch` and chip_smoke.py import neither
-jax nor the JAX package `repro`, at run time or anywhere in their source."""
+jax, the JAX package `repro` nor msgpack, at run time or anywhere in their
+source, and the port saves and restores its checkpoints where none of the
+three can be imported."""
 import ast
 import os
 import subprocess
@@ -15,9 +17,12 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core.dedup, "
-            "repro_torch.index, repro_torch.kernels.ops, repro_torch.data; "
+            "repro_torch.index, repro_torch.kernels.ops, repro_torch.data, "
+            "repro_torch.core.oracle, repro_torch.index.exact, "
+            "repro_torch.lifecycle, repro_torch.train.checkpoint; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')); print(bad); sys.exit(1 if bad else 0)")
+            "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
+            "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
@@ -36,4 +41,45 @@ def test_no_jax_or_reference_import_in_source(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, node.lineno, name)
+            assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
+                (path, node.lineno, name)
+
+
+_BLOCKED_RUN = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import numpy as np
+from repro_torch.core.dedup import FoldConfig
+from repro_torch.data.corpus import DATASET_PRESETS, SyntheticCorpus
+from repro_torch.index import make_pipeline
+tokens, lengths, _ = SyntheticCorpus(DATASET_PRESETS["lm1b"]).next_batch(32)
+nxt = SyntheticCorpus(DATASET_PRESETS["common_crawl"]).next_batch(32)[:2]
+for key in ("hnsw", "brute"):
+    cfg = FoldConfig(capacity=128, M=8, M0=16, ef_construction=32,
+                     ef_search=32, verify_minhash=key == "hnsw",
+                     exact_filter=True)
+    pipe = make_pipeline(key, cfg, device="cpu")
+    pipe.process_batch(tokens, lengths)
+    pipe.delete(np.arange(0, 32, 4))
+    pipe.save(sys.argv[1] + "/" + key, 1)
+    back = make_pipeline(key, cfg, device="cpu")
+    assert back.restore(sys.argv[1] + "/" + key) == 1
+    assert back.inserted == pipe.inserted
+    assert (back.process_batch(*nxt)[0] == pipe.process_batch(*nxt)[0]).all()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_checkpoints_round_trip_without_jax_or_msgpack(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(tmp_path)],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert (tmp_path / "hnsw" / "step_00000001" / "arrays.msgpack").exists()

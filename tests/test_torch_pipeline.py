@@ -1,8 +1,10 @@
 """The slice end to end: the port's FoldPipeline on the CPU against the JAX
 FoldPipeline (use_kernel=False, which tests/test_kernels.py holds equal to
 the Pallas kernels) must give identical keep masks and identical HNSW
-states after every batch. Also the device rule, the registry and the
-options that are not ported yet."""
+states after every batch, with the defaults and with each option on
+(select_heuristic, batched_insert=False, verify_minhash, exact_filter).
+Also the device rule, the registry, and the lifecycle calls delegated
+through the pipeline."""
 import numpy as np
 import pytest
 import torch
@@ -79,36 +81,92 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_registry_serves_hnsw_and_refuses_unported_keys():
-    assert available() == ("hnsw",)
-    # the port's factory takes `device`; foldlint's factory table is keyed
-    # by registry key and holds the reference's "hnsw" factory
+    assert available() == ("brute", "hnsw")
+    # the port's factories take `device`; foldlint's factory table is keyed
+    # by registry key and holds the reference's factories
     be = make("hnsw", FoldConfig(**SMALL), device="cpu")  # foldlint: disable=F131
     assert be.name == "hnsw" and be.capacity == 1024
-    for key in ("hnsw_raw", "brute"):
+    brute = make("brute", FoldConfig(**SMALL), device="cpu")  # foldlint: disable=F131
+    assert brute.name == "brute" and brute.capacity == 1024
+    assert brute.sig_spec.needs == frozenset({"sigs"})
+    for key in ("hnsw_raw", "hnsw_sharded", "dpk", "flat_lsh",
+                "prefix_filter"):
         with pytest.raises(NotImplementedError, match=key):
             make(key, FoldConfig(**SMALL), device="cpu")
     with pytest.raises(KeyError):
         make("no_such_backend")
 
 
+def _stream(n_batches, size=48, repeat=False):
+    """Common Crawl preset batches; repeat=True appends a batch that
+    re-sends rows of the first two, so the exact front door hits."""
+    corpus = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
+    out = [corpus.next_batch(size)[:2] for _ in range(n_batches)]
+    if repeat:
+        (t0, l0), (t1, l1) = out[0], out[1]
+        h = size // 2
+        out.append((np.concatenate([t0[:h], t1[:size - h]]),
+                    np.concatenate([l0[:h], l1[:size - h]])))
+    return out
+
+
+def _assert_same_pipelines(jax_pipe, pipe, batches):
+    for b, (tokens, lengths) in enumerate(batches):
+        jkeep, jstats = jax_pipe.process_batch(tokens, lengths)
+        keep, stats = pipe.process_batch(tokens, lengths)
+        np.testing.assert_array_equal(keep, np.asarray(jkeep),
+                                      err_msg=f"batch {b}")
+        for key, exp in jstats.items():
+            if not key.startswith("t_"):
+                assert stats[key] == exp, (b, key)
+        got = state_to_numpy(pipe.state)
+        for field, exp in jax_pipe.state._asdict().items():
+            np.testing.assert_array_equal(got[field], np.asarray(exp),
+                                          err_msg=f"batch {b} {field}")
+    return stats
+
+
 @pytest.mark.parametrize("option", ["verify_minhash", "select_heuristic",
                                     "batched_insert", "exact_filter"])
 def test_unported_options_raise_by_name(option):
+    """Each option that the first slices refused by name now runs: the
+    port's FoldPipeline with it equals the JAX one batch for batch (keep
+    masks, stats, HNSWState). The exact-filter stream ends in a batch of
+    repeated rows, so the front door hits."""
     value = option != "batched_insert"
-    cfg = FoldConfig(**{**SMALL, option: value})
-    match = "_insert_one" if option == "batched_insert" else option
-    with pytest.raises(NotImplementedError, match=match):
-        FoldPipeline(cfg, device="cpu")
+    jax_pipe = JaxFoldPipeline(JaxFoldConfig(use_kernel=False,
+                                             **{**SMALL, option: value}))
+    pipe = FoldPipeline(FoldConfig(**{**SMALL, option: value}), device="cpu")
+    stats = _assert_same_pipelines(
+        jax_pipe, pipe, _stream(3, repeat=option == "exact_filter"))
+    if option == "exact_filter":
+        assert stats["n_exact_hits"] > 0
+    if option == "verify_minhash":
+        assert pipe.backend.tau_index == pipe.cfg.tau
 
 
-def test_lifecycle_calls_not_ported_raise():
-    pipe = FoldPipeline(FoldConfig(**SMALL), device="cpu")
-    for call, name in ((lambda: pipe.backend.save("x", 0), "save"),
-                       (lambda: pipe.backend.restore("x"), "restore"),
-                       (lambda: pipe.backend.delete(np.arange(2)), "delete"),
-                       (lambda: pipe.backend.compact(), "compact")):
-        with pytest.raises(NotImplementedError, match=name):
-            call()
+def test_lifecycle_calls_not_ported_raise(tmp_path):
+    """save, restore, delete and compact, once refused by name, now match
+    the JAX pipeline: the same tombstones, the same compacted state and
+    the same snapshot bytes, and a restored pipeline gives the same next
+    verdicts."""
+    cfg = {**SMALL, "capacity": 256}
+    jax_pipe = JaxFoldPipeline(JaxFoldConfig(use_kernel=False, **cfg))
+    pipe = FoldPipeline(FoldConfig(**cfg), device="cpu")
+    batches = _stream(3)
+    _assert_same_pipelines(jax_pipe, pipe, batches[:2])
+    kill = np.flatnonzero(np.asarray(jax_pipe.state.node_level) >= 0)[::3]
+    assert pipe.delete(kill) == jax_pipe.delete(kill) == len(kill)
+    assert pipe.deleted == len(kill) and pipe.dead_fraction == len(kill) / 256
+    assert pipe.compact()["reclaimed"] == jax_pipe.compact()["reclaimed"]
+    pipe.save(str(tmp_path / "t"), 1)
+    jax_pipe.save(str(tmp_path / "j"), 1)
+    for name in ("arrays.msgpack", "MANIFEST.json"):
+        assert ((tmp_path / "t" / "step_00000001" / name).read_bytes()
+                == (tmp_path / "j" / "step_00000001" / name).read_bytes())
+    fresh = FoldPipeline(FoldConfig(**cfg), device="cpu")
+    assert fresh.restore(str(tmp_path / "j")) == 1
+    _assert_same_pipelines(jax_pipe, fresh, batches[2:])
     pipe.grow(2048)
     assert pipe.capacity == 2048 and pipe.state.vectors.shape[0] == 2048
 

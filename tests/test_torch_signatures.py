@@ -146,3 +146,58 @@ def test_fold_signatures_bit_exact_on_every_preset(preset):
     np.testing.assert_array_equal(u32(tbmp), np.asarray(jbmp))
     np.testing.assert_array_equal(tpcs.numpy(), np.asarray(jpcs))
     assert (u32(tsig)[0] == 0xFFFFFFFF).all()
+
+
+
+def _lane_count_pairs(h, rng):
+    """a (1, h) and b (h+1, h): row i of b equals a in exactly i lanes, at
+    shuffled positions, so every lane count 0..h occurs once."""
+    a = rng.integers(0, 2**32, (1, h), dtype=np.uint64).astype(np.uint32)
+    b = np.repeat(a, h + 1, axis=0) ^ np.uint32(1)
+    for i in range(h + 1):
+        lanes = rng.permutation(h)[:i]
+        b[i, lanes] = a[0, lanes]
+    return a, b
+
+
+@pytest.mark.parametrize("h", [7, 31, 112, 128])
+def test_minhash_jaccard_rounds_as_reference_at_every_count(h):
+    """pairwise_minhash_jaccard and minhash_jaccard_sim equal the
+    reference's jitted (and eager) jnp.mean bit for bit at every lane
+    count 0..H: count * f32(1/H), one rounding. At H = 112 an IEEE
+    division count / H differs at 62 of the 113 counts."""
+    a, b = _lane_count_pairs(h, np.random.default_rng(h))
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    ta, tb = to_t(a), to_t(b)
+    a_rows = np.repeat(a, h + 1, axis=0)
+    exp = np.asarray(jax.jit(jbm.pairwise_minhash_jaccard)(ja, jb))
+    np.testing.assert_array_equal(
+        exp, np.asarray(jbm.pairwise_minhash_jaccard(ja, jb)))
+    pairs = [
+        (exp, tbm.pairwise_minhash_jaccard(ta, tb)),
+        (np.asarray(jax.jit(jbm.pairwise_minhash_jaccard)(jb, ja)),
+         tbm.pairwise_minhash_jaccard(tb, ta)),
+        (np.asarray(jax.jit(jbm.minhash_jaccard_sim)(jnp.asarray(a_rows), jb)),
+         tbm.minhash_jaccard_sim(to_t(a_rows), tb)),
+    ]
+    for e, got in pairs:
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      np.asarray(e).view(np.uint32))
+    counts = np.arange(h + 1, dtype=np.float32)
+    np.testing.assert_array_equal(
+        exp[0], counts * (np.float32(1) / np.float32(h)))
+
+
+@pytest.mark.parametrize("h", [7, 31, 112, 128])
+def test_verify_minhash_rescoring_rounds_as_reference(h):
+    """The exact-verify rescoring of the hnsw backend rounds as the
+    reference's: numpy's float64 mean of the lane agreement, cast to f32
+    (not the jnp.mean rounding of pairwise_minhash_jaccard)."""
+    from repro_torch.index.backends.hnsw import _lane_fraction_f64
+    a, b = _lane_count_pairs(h, np.random.default_rng(h + 1))
+    cand = b[None]                                     # (1, h+1, h)
+    exp = jnp.asarray((a[:, None, :] == cand).mean(-1), jnp.float32)
+    got = _lane_fraction_f64(to_t(a)[:, None, :] == to_t(cand))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(exp).view(np.uint32))
