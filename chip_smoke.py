@@ -26,6 +26,20 @@ Phases (any failure exits non-zero and prints no result):
      compact (wall and device time), 4 more batches reuse the freed slots,
      save to build/ and restore into a fresh card pipeline (identical
      state and verdicts); and cuda-vs-cpu parity of delete and compact
+  8. service — DedupService(ServiceConfig(fold=FoldConfig(capacity=2**20)))
+     at its defaults on the card, fed 8,192 Common Crawl preset docs as
+     ragged requests of 1-300 docs: docs/s, its batch_ms p50/p99 and
+     sampled stage medians; its verdicts and index equal a process_batch
+     loop over the same micro-batches on a second card pipeline; one
+     profiled micro-batch (device idle share); pipeline depth 0 against 2
+     in alternating turns on fresh services; and growth from 512 slots
+     with snapshot rotation on cuda and on cpu (equal verdicts, grow
+     events, committed steps, snapshot bytes)
+  9. cluster — a ClusterWriter at 2**20 slots publishing every 16 batches,
+     two card replicas and two tenants (a QPS quota on an injected clock,
+     a live-doc budget), 4,096 docs: after every publish each refreshed
+     replica answers a probe batch as the writer does; publish and
+     refresh times; the budget's evictions ran through delete on the card
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -34,6 +48,7 @@ limit, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -49,6 +64,12 @@ PROFILE_DIR = os.path.join(ROOT, "build", "profile")
 
 # phase 3: batches of 512 docs fed at capacity 2**20
 PIPE_BATCHES = 32
+# phases 8 and 9: docs sent as ragged requests of 1-300 docs
+SERVICE_DOCS = 8192      # the service at capacity 2**20
+DEPTH_DOCS = 2048        # each turn of pipeline depth 0 against 2
+ROTATION_DOCS = 1024     # growth from 512 slots with snapshot rotation
+CLUSTER_DOCS = 4096      # the cluster writer and its two replicas
+SERVING_CAPACITY = 1 << 20   # index slots of phases 8 and 9
 
 # published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -653,6 +674,288 @@ def phase_lifecycle(pipe, more_batches, parity_pipes, parity_more, dev
     log(f"lifecycle: phase wall {out['phase_s']:.1f} s")
     return out
 
+def ragged_chunks(corpus, n_docs: int, seed: int, hi: int = 300) -> list:
+    """n_docs corpus docs as submit-sized chunks of 1-hi docs (seeded
+    sizes): the traffic of clients sending ragged requests."""
+    rng = np.random.default_rng(seed)
+    out, left = [], n_docs
+    while left:
+        n = min(left, int(rng.integers(1, hi + 1)))
+        out.append(corpus.next_batch(n)[:2])
+        left -= n
+    return out
+
+
+def verdict_tuples(verdicts) -> list:
+    return [(v.doc_id, v.admitted, v.reason, v.neighbor_id,
+             int(np.float32(v.similarity).view(np.uint32))) for v in verdicts]
+
+
+def run_service(svc, chunks) -> tuple[list, float]:
+    """Submit every chunk, flush, and collect the verdicts; returns them
+    and the wall seconds of submit + flush (the card synchronised)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [svc.submit(tok, ln) for tok, ln in chunks]
+    svc.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [v for t in tickets for v in svc.results(t)], wall
+
+
+def phase_service(chunks, fresh, depth_chunks, rot_chunks, card: str,
+                  dev) -> dict:
+    """DedupService at its defaults on the card: docs/s, its own latency
+    histograms, verdicts against a process_batch loop over the emitted
+    micro-batches, one profiled micro-batch (`fresh`: the stream's next
+    max_batch docs), depth 0 against depth 2, and a growth + rotation arm
+    on cuda and on cpu."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.dedup import FoldConfig, FoldPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.service import DedupService, ServiceConfig
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    cfg = ServiceConfig(fold=FoldConfig(capacity=SERVING_CAPACITY))
+    svc = DedupService(cfg)
+    if svc.pipeline.device.type != torch.device(dev).type:
+        fail(f"service: DedupService() built on {svc.pipeline.device}")
+    emitted = []
+    svc.outcome_hooks.append(lambda o: emitted.append(o.batch))
+    _lib.reset_launches()
+    verdicts, wall = run_service(svc, chunks)
+    launches = dict(_lib.LAUNCHES)
+    require_launched("service", launches, ["minhash", "jaccard_cached"])
+    n_docs = sum(len(t) for t, _ in chunks)
+    if [v.doc_id for v in verdicts] != list(range(n_docs)):
+        fail("service: verdicts do not cover the submitted doc ids")
+    st = svc.stats()
+    lat = st["latency_ms"]
+    out["main"] = {
+        "docs": n_docs, "submits": len(chunks), "wall_s": wall,
+        "docs_per_s": n_docs / wall, "micro_batches": len(emitted),
+        "shapes": st["batching"]["compiled_shapes"],
+        "admitted": st["counters"]["admitted"],
+        "batch_dup": st["counters"].get("batch_dup", 0),
+        "index_dup": st["counters"].get("index_dup", 0),
+        "batch_ms": {k: lat["batch_ms"][k] for k in ("n", "p50", "p99",
+                                                     "max")},
+        "stage_ms_p50": {k: (lat[k]["p50"], lat[k]["n"]) for k in (
+            "t_in_batch_ms", "t_search_ms", "t_insert_ms") if k in lat},
+        "launches": launches}
+    log("service " + json.dumps(out["main"]))
+    # the same micro-batches, valid rows only, through process_batch on a
+    # second card pipeline: padding rows trail every batch and are never
+    # admitted, so the verdicts and the index must be equal
+    ref = FoldPipeline(FoldConfig(capacity=SERVING_CAPACITY), device=dev)
+    keep_ref = np.concatenate([
+        ref.process_batch(mb.tokens[:mb.n_docs], mb.lengths[:mb.n_docs])[0]
+        for mb in emitted])
+    order = np.concatenate([mb.doc_ids[:mb.n_docs] for mb in emitted])
+    keep_svc = np.asarray([v.admitted for v in verdicts])[order]
+    if not np.array_equal(keep_ref, keep_svc):
+        fail(f"service: verdicts differ from the process_batch loop at "
+             f"{int((keep_ref != keep_svc).sum())} docs")
+    bad = states_equal(ref.backend.state, svc.pipeline.backend.state)
+    if bad:
+        fail(f"service: index differs from the process_batch loop: {bad}")
+    log(f"service: {n_docs} verdicts equal a process_batch loop over the "
+        f"same {len(emitted)} micro-batches (index state equal too); {card}")
+    del ref
+    prof, _ = device_profile(lambda: (svc.submit(*fresh), svc.flush()),
+                             "service_batch_trace")
+    prof["admitted"] = svc.stats()["counters"]["admitted"] - \
+        out["main"]["admitted"]
+    out["profile"] = prof
+    log("service profile " + json.dumps(prof))
+    del svc
+    # pipeline depth 0 against 2: fresh services, alternating turns
+    turns = []
+    for depth in (0, 2, 0, 2):
+        s = DedupService(dataclasses.replace(cfg, pipeline_depth=depth))
+        _, w = run_service(s, depth_chunks)
+        turns.append({"depth": depth, "wall_s": w,
+                      "docs_per_s": sum(len(t) for t, _ in depth_chunks) / w})
+        del s
+    out["depth"] = turns
+    log("service depth " + json.dumps(turns) + f"; {card}")
+    # growth + snapshot rotation on cuda and on cpu: the same verdicts,
+    # grow events and committed steps (and snapshot bytes)
+    arms = {}
+    for d in (dev, "cpu"):
+        snap = os.path.join(ROOT, "build", f"service_rotation_{d}")
+        shutil.rmtree(snap, ignore_errors=True)
+        s = DedupService(ServiceConfig(fold=FoldConfig(capacity=512),
+                                       snapshot_dir=snap, snapshot_every=4,
+                                       device=str(d)))
+        v, w = run_service(s, rot_chunks)
+        arms[str(d)] = {"verdicts": verdict_tuples(v), "wall_s": w,
+                        "grow_events": s.index_manager.grow_events,
+                        "capacity": s.pipeline.capacity,
+                        "steps": s.index_manager.committed_steps(),
+                        "snapshots": s.index_manager.snapshots_taken,
+                        "dir": snap}
+    a, b = arms[str(dev)], arms["cpu"]
+    for key in ("verdicts", "grow_events", "capacity", "steps", "snapshots"):
+        if a[key] != b[key]:
+            fail(f"service rotation: {key} differs on cuda and cpu")
+    if a["grow_events"] < 1 or not a["steps"]:
+        fail(f"service rotation: no growth or no snapshot ({a['grow_events']}, "
+             f"{a['steps']})")
+    for step in a["steps"]:
+        name = os.path.join(f"step_{step:08d}", "arrays.msgpack")
+        with open(os.path.join(a["dir"], name), "rb") as f1, \
+                open(os.path.join(b["dir"], name), "rb") as f2:
+            if f1.read() != f2.read():
+                fail(f"service rotation: snapshot {step} bytes differ")
+    for arm in arms.values():
+        shutil.rmtree(arm["dir"], ignore_errors=True)
+    out["rotation"] = {"docs": len(a["verdicts"]), "admitted": sum(
+        v[1] for v in a["verdicts"]), "grow_events": a["grow_events"],
+        "capacity": a["capacity"], "steps": a["steps"],
+        "cuda_wall_s": a["wall_s"], "cpu_wall_s": b["wall_s"]}
+    log("service rotation " + json.dumps(out["rotation"]) + "; cuda equals "
+        "cpu (verdicts, grow events, committed steps, snapshot bytes)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"service: phase wall {out['phase_s']:.1f} s")
+    return out
+
+
+class StepClock:
+    """The tenants' clock: moves only when the request loop advances it
+    (no sleeping for a retry-after, and the same rejections in every
+    run)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def phase_cluster(chunks, probe, card: str, dev) -> dict:
+    """One ClusterWriter at 2**20 with two card replicas and two tenants:
+    after every publish each refreshed replica answers a probe batch as the
+    writer's own pipeline does at that step; publish and refresh times."""
+    import shutil
+
+    import torch
+
+    from repro_torch.cluster import (Backpressure, ClusterConfig,
+                                     ClusterWriter, ReadReplica, TenantSpec)
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.kernels import _lib
+    from repro_torch.service import ServiceConfig
+    t_phase = time.perf_counter()
+    snap = os.path.join(ROOT, "build", "cluster_snapshots")
+    shutil.rmtree(snap, ignore_errors=True)
+    scfg = ServiceConfig(fold=FoldConfig(capacity=SERVING_CAPACITY),
+                         snapshot_dir=snap)
+    clock = StepClock()
+    tenants = (TenantSpec("quota", qps=500.0, burst=300),
+               TenantSpec("budget", max_live_docs=500))
+    w = ClusterWriter(ClusterConfig(service=scfg, publish_every=16,
+                                    tenants=tenants), clock=clock)
+    replicas = [ReadReplica(scfg, replica_id=i) for i in range(2)]
+    publish_ms, refresh_ms, checks = [], [], []
+    publish = w.publish
+
+    def timed_publish(flush: bool = True) -> int:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch = publish(flush=flush)
+        publish_ms.append((time.perf_counter() - t0) * 1e3)
+        return epoch
+
+    def check_epoch(_out) -> None:
+        # runs after the writer's own hook: a publish just happened iff the
+        # epoch moved; the writer's state is then exactly the snapshot's
+        if w.epoch == (checks[-1]["epoch"] if checks else 0):
+            return
+        lag = [w.epoch - r.epoch for r in replicas]
+        for r in replicas:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if not r.refresh():
+                fail(f"cluster: replica {r.replica_id} did not take epoch "
+                     f"{w.epoch}")
+            torch.cuda.synchronize()
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        want = w.query(*probe)
+        for r in replicas:
+            got = r.query(*probe)
+            if not (np.array_equal(got.is_dup, want.is_dup)
+                    and np.array_equal(got.ids, want.ids)
+                    and np.array_equal(got.sims.view(np.uint32),
+                                       want.sims.view(np.uint32))):
+                fail(f"cluster: replica {r.replica_id} differs from the "
+                     f"writer at epoch {w.epoch}")
+        checks.append({"epoch": w.epoch, "count": w.service.pipeline.inserted,
+                       "probe_dups": int(want.is_dup.sum()),
+                       "epochs_behind_before": lag,
+                       "epochs_behind_after": [r.epochs_behind
+                                               for r in replicas]})
+
+    w.publish = timed_publish
+    w.service.outcome_hooks.append(check_epoch)
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    retries = 0
+    for i, (tok, ln) in enumerate(chunks):
+        tenant = ("quota", "budget")[i % 2]
+        clock.t += 0.1
+        while True:
+            try:
+                w.submit(tok, ln, tenant=tenant)
+                break
+            except Backpressure as e:
+                if e.reason != "qps_quota":
+                    raise
+                retries += 1
+                # a client waits the hint, and at least a millisecond: a
+                # hint below the clock's resolution would not move it
+                clock.t += max(e.retry_after_s, 1e-3)
+    w.flush()
+    w.publish()                 # the tail after the last auto-publish
+    check_epoch(None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    require_launched("cluster", launches, ["minhash", "jaccard_cached"])
+    ten = w.stats()["cluster"]["tenants"]
+    pipe = w.service.pipeline
+    if ten["quota"]["rejected_qps"] <= 0 or retries <= 0:
+        fail(f"cluster: the QPS quota never bit: {ten['quota']}")
+    evicted = ten["budget"]["evicted"]
+    if (evicted <= 0 or pipe.deleted != evicted
+            or pipe.device.type != torch.device(dev).type
+            or ten["budget"]["live_docs"] > 500):
+        fail(f"cluster: budget evictions did not go through delete on the "
+             f"card: {ten['budget']}, deleted {pipe.deleted} on "
+             f"{pipe.device}")
+    if len(checks) != w.epoch or w.epoch < 2:
+        fail(f"cluster: {len(checks)} checked epochs of {w.epoch}")
+    n_docs = sum(len(t) for t, _ in chunks)
+    step_dir = os.path.join(snap, f"step_{w.service.index_manager.last_step:08d}")
+    out = {"docs": n_docs, "wall_s": wall, "docs_per_s": n_docs / wall,
+           "epochs": w.epoch, "publish_ms": publish_ms,
+           "refresh_ms": refresh_ms,
+           "snapshot_bytes": os.path.getsize(os.path.join(step_dir,
+                                                          "arrays.msgpack")),
+           "checks": checks, "tenants": ten, "qps_retries": retries,
+           "launches": launches, "card": card}
+    shutil.rmtree(snap, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("cluster " + json.dumps(out))
+    log(f"cluster: {len(replicas)} replicas equal the writer at each of "
+        f"{w.epoch} epochs; phase wall {out['phase_s']:.1f} s; {card}")
+    return out
+
 
 def main() -> None:
     import torch
@@ -681,6 +984,17 @@ def main() -> None:
     par_corpus = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
     par_batches = [par_corpus.next_batch(256)[:2] for _ in range(4)]
     par_more = [par_corpus.next_batch(256)[:2] for _ in range(2)]
+    svc_corpus = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
+    svc_chunks = ragged_chunks(svc_corpus, SERVICE_DOCS, seed=8)
+    svc_fresh = svc_corpus.next_batch(128)[:2]
+    depth_chunks = ragged_chunks(SyntheticCorpus(dataclasses.replace(
+        DATASET_PRESETS["common_crawl"], seed=1)), DEPTH_DOCS, seed=9)
+    rot_chunks = ragged_chunks(SyntheticCorpus(dataclasses.replace(
+        DATASET_PRESETS["common_crawl"], seed=2)), ROTATION_DOCS, seed=10)
+    cl_corpus = SyntheticCorpus(dataclasses.replace(
+        DATASET_PRESETS["common_crawl"], seed=3))
+    cl_chunks = ragged_chunks(cl_corpus, CLUSTER_DOCS, seed=11)
+    probe = cl_corpus.next_batch(64)[:2]
 
     tok, ln = pipe_batches[0]
     padded = np.zeros((tok.shape[0], 384), np.uint32)
@@ -713,6 +1027,10 @@ def main() -> None:
     phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
     phase_options(par_batches, dev)
     phase_lifecycle(pipe, more_batches, parity_pipes, par_more, dev)
+    del pipe, parity_pipes
+    svc = phase_service(svc_chunks, svc_fresh, depth_chunks, rot_chunks,
+                        card, dev)
+    clu = phase_cluster(cl_chunks, probe, card, dev)
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -723,6 +1041,11 @@ def main() -> None:
         r["path"] = paths[r["name"]]
         if r["launches"] <= 0:
             fail(f"kernel {r['name']} was not launched on its path")
+        if r["name"] in ("minhash", "jaccard_cached"):
+            r["path_launches"] = {
+                "pipeline": r["launches"],
+                "service": svc["main"]["launches"][r["name"]],
+                "cluster": clu["launches"][r["name"]]}
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,11 @@ from repro_torch.index.pipeline import (DedupPipeline,  # noqa: F401
                                         greedy_leader_split)
 from repro_torch.index.protocol import (BATCH_FIRST, DedupBackend,  # noqa: F401
                                         SigBatch, SigSpec, StepResult)
-from repro_torch.index.registry import (available, make,  # noqa: F401
-                                        make_pipeline, register)
+from repro_torch.index.registry import (accepted_opts,  # noqa: F401
+                                        available, make, make_pipeline,
+                                        register, validate_opts)
 
 __all__ = ["DedupBackend", "SigBatch", "SigSpec", "StepResult", "BATCH_FIRST",
            "DedupPipeline", "QueryResult", "greedy_leader", "greedy_leader_split",
-           "register", "make", "make_pipeline", "available"]
+           "register", "make", "make_pipeline", "available", "accepted_opts",
+           "validate_opts"]

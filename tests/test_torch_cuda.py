@@ -303,3 +303,86 @@ def test_cuda_options_and_compact_match_cpu(cuda, opts):
             out = [p.compact() for p in pipes]
             assert out[0]["reclaimed"] == out[1]["reclaimed"] > 0
             assert not _same_state(pipes[0].state, pipes[1].state)
+
+
+def _verdicts(vs):
+    return [(v.doc_id, v.admitted, v.reason, v.neighbor_id,
+             int(np.float32(v.similarity).view(np.uint32))) for v in vs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 2])
+def test_cuda_service_verdicts_match_cpu(cuda, tmp_path, depth):
+    """DedupService on the card and on the CPU over the same ragged
+    submits: equal verdicts, counters, grow events, committed snapshot
+    steps (with equal bytes) and index state; the service's path launched
+    K1 and K2."""
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.service import DedupService, ServiceConfig
+    svcs = [DedupService(ServiceConfig(
+        fold=FoldConfig(capacity=128, M=8, M0=16, ef_construction=32,
+                        ef_search=32), max_batch=64, max_wait_ms=0.0,
+        pipeline_depth=depth, stage_timer_every=3,
+        snapshot_dir=str(tmp_path / str(d)), snapshot_every=2,
+        max_snapshots=2, device=d)) for d in (cuda, "cpu")]  # foldlint: disable=F141 (the port's ServiceConfig adds device)
+    rng = np.random.default_rng(depth)
+    docs = [(t, ln) for t, ln in _cc_batches(6, 100)]
+    _lib.reset_launches()
+    tickets = [[], []]
+    for tok, ln in docs:
+        n = int(rng.integers(1, len(tok)))
+        for i, svc in enumerate(svcs):
+            tickets[i].append(svc.submit(tok[:n], ln[:n]))
+    for svc in svcs:
+        svc.flush()
+    assert _lib.LAUNCHES["minhash"] > 0 and _lib.LAUNCHES["jaccard_cached"] > 0
+    out = [[v for t in ts for v in svc.results(t)]
+           for ts, svc in zip(tickets, svcs)]
+    assert _verdicts(out[0]) == _verdicts(out[1])
+    s = [svc.stats() for svc in svcs]
+    assert s[0]["counters"] == s[1]["counters"]
+    assert s[0]["index"]["grow_events"] == s[1]["index"]["grow_events"] > 0
+    steps = [svc.index_manager.committed_steps() for svc in svcs]
+    assert steps[0] == steps[1] and steps[0]
+    for step in steps[0]:
+        name = f"step_{step:08d}/arrays.msgpack"
+        assert (tmp_path / str(cuda) / name).read_bytes() == \
+            (tmp_path / "cpu" / name).read_bytes()
+    assert not _same_state(svcs[0].pipeline.backend.state,
+                           svcs[1].pipeline.backend.state)
+
+
+@pytest.mark.gpu
+def test_cuda_replica_matches_cpu_replica(cuda, tmp_path):
+    """One published epoch restored by a replica on the card and by one on
+    the CPU: equal query results, and equal to the writer's."""
+    import dataclasses
+
+    from repro_torch.cluster import (ClusterConfig, ClusterWriter,
+                                     ReadReplica, TenantSpec)
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.service import ServiceConfig
+    scfg = ServiceConfig(fold=FoldConfig(capacity=512, M=8, M0=16,
+                                         ef_construction=32, ef_search=32),
+                         max_batch=32, max_wait_ms=0.0,
+                         snapshot_dir=str(tmp_path), device=cuda)  # foldlint: disable=F141 (the port's ServiceConfig adds device)
+    w = ClusterWriter(ClusterConfig(
+        service=scfg, n_replicas=0,
+        tenants=(TenantSpec("capped", max_live_docs=40),)))
+    replicas = [ReadReplica(dataclasses.replace(scfg, device=d))  # foldlint: disable=F142 (the port's ServiceConfig adds device)
+                for d in (cuda, "cpu")]
+    for tok, ln in _cc_batches(3, 48, seed=1):
+        w.results(w.submit(tok, ln, tenant="capped"))
+        w.publish()
+        assert all(r.refresh() for r in replicas)
+        probe = _cc_batches(1, 32, seed=2)[0]
+        res = [r.query(*probe) for r in replicas] + [w.query(*probe)]
+        for a in res[1:]:
+            assert np.array_equal(res[0].is_dup, a.is_dup)
+            assert np.array_equal(res[0].ids, a.ids)
+            assert np.array_equal(res[0].sims.view(np.uint32),
+                                  a.sims.view(np.uint32))
+    assert replicas[0].pipeline.device.type == "cuda"
+    assert w.stats()["cluster"]["tenants"]["capped"]["evicted"] > 0
+    assert not _same_state(replicas[0].pipeline.backend.state,
+                           replicas[1].pipeline.backend.state)

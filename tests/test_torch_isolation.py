@@ -1,7 +1,7 @@
 """The port stands alone: `repro_torch` and chip_smoke.py import neither
 jax, the JAX package `repro` nor msgpack, at run time or anywhere in their
-source, and the port saves and restores its checkpoints where none of the
-three can be imported."""
+source, and the port saves and restores its checkpoints, and serves a
+service with snapshots, where none of the three can be imported."""
 import ast
 import os
 import subprocess
@@ -19,7 +19,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core.dedup, "
             "repro_torch.index, repro_torch.kernels.ops, repro_torch.data, "
             "repro_torch.core.oracle, repro_torch.index.exact, "
-            "repro_torch.lifecycle, repro_torch.train.checkpoint; "
+            "repro_torch.lifecycle, repro_torch.train.checkpoint, "
+            "repro_torch.service, repro_torch.cluster, "
+            "repro_torch.data.ingest; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -70,6 +72,16 @@ for key in ("hnsw", "brute"):
     assert back.restore(sys.argv[1] + "/" + key) == 1
     assert back.inserted == pipe.inserted
     assert (back.process_batch(*nxt)[0] == pipe.process_batch(*nxt)[0]).all()
+from repro_torch.service import DedupService, ServiceConfig
+svc = DedupService(ServiceConfig(
+    fold=FoldConfig(capacity=128, M=8, M0=16, ef_construction=32,
+                    ef_search=32), max_batch=16, max_wait_ms=0.0,
+    snapshot_dir=sys.argv[1] + "/service", snapshot_every=1,
+    device="cpu"))
+ticket = svc.submit(tokens[:20], lengths[:20])
+svc.flush()
+assert len(svc.results(ticket)) == 20
+assert svc.index_manager.committed_steps() == (1, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(bad)
@@ -83,3 +95,4 @@ def test_checkpoints_round_trip_without_jax_or_msgpack(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert (tmp_path / "hnsw" / "step_00000001" / "arrays.msgpack").exists()
+    assert (tmp_path / "service" / "step_00000002" / "MANIFEST.json").exists()
