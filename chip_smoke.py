@@ -40,6 +40,13 @@ Phases (any failure exits non-zero and prints no result):
      a live-doc budget), 4,096 docs: after every publish each refreshed
      replica answers a probe batch as the writer does; publish and
      refresh times; the budget's evictions ran through delete on the card
+ 10. baselines — Table 1's configurations (dpk, prefix_filter, flat_lsh
+     with topk 4 and 160, hnsw_raw under minhash_jaccard and hamming) at
+     2**20 slots over a prefix of phase 3's batches (BASELINES): docs/s,
+     stage medians, recall and FP against phase 5's brute masks at tau
+     0.7, K1's launches (none on prefix_filter, which runs no MinHash);
+     each on cuda equals it on cpu over phase 2's batches (hnsw_raw's full
+     state too; flat_lsh through deletes and two more batches)
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -70,6 +77,19 @@ DEPTH_DOCS = 2048        # each turn of pipeline depth 0 against 2
 ROTATION_DOCS = 1024     # growth from 512 slots with snapshot rotation
 CLUSTER_DOCS = 4096      # the cluster writer and its two replicas
 SERVING_CAPACITY = 1 << 20   # index slots of phases 8 and 9
+# phase 10: Table 1's configurations (benchmarks/table1_recall.py:13-24)
+# at 2**20 slots, each fed a prefix of phase 3's batches: (tag, registry
+# key, options, batches). hnsw_raw is cut to 16 batches (it pays phase 3's
+# per-batch launches) and the pure-Python prefix_filter to 8, to keep the
+# phase within about 3 minutes.
+BASELINES = [
+    ("dpk", "dpk", {}, 32),
+    ("prefix_filter", "prefix_filter", {}, 8),
+    ("flat_topk4", "flat_lsh", {"topk": 4}, 32),
+    ("flat_topk160", "flat_lsh", {"topk": 160}, 32),
+    ("faiss_jaccard", "hnsw_raw", {"metric": "minhash_jaccard"}, 16),
+    ("faiss_hamming", "hnsw_raw", {"metric": "hamming"}, 16),
+]
 
 # published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -472,16 +492,18 @@ def require_launched(tag: str, launches: dict, names) -> None:
         fail(f"{tag}: kernels {missing} were not launched: {launches}")
 
 
-def phase_reference(pipe_batches, hnsw_keep, par_batches, dev) -> dict:
+def phase_reference(pipe_batches, hnsw_keep, par_batches, dev
+                    ) -> tuple[dict, np.ndarray]:
     """brute on the card over phase 3's batches: docs/s, and phase 3's
-    hnsw keep masks against it; then brute on cuda vs cpu."""
+    hnsw keep masks against it; then brute on cuda vs cpu. Returns the
+    record and brute's keep mask at tau 0.7 (phase 10's ground truth)."""
     import torch
 
     from repro_torch.core.dedup import FoldConfig, bitmap_tau
     from repro_torch.index import make_pipeline
     from repro_torch.kernels import _lib
     t_phase = time.perf_counter()
-    out = {}
+    out, ref_keep = {}, None
     hnsw_cfg = FoldConfig(capacity=1 << 20)
     # brute at the default tau (0.7, MinHash space: the benchmark
     # protocol) and at the MinHash tau phase 3's bitmap tau stands for
@@ -499,6 +521,8 @@ def phase_reference(pipe_batches, hnsw_keep, par_batches, dev) -> dict:
         launches = dict(_lib.LAUNCHES)
         require_launched(f"brute {tag}", launches, ["minhash"])
         keep = np.concatenate(keeps)
+        if tag == "tau_0.7":
+            ref_keep = keep
         rec, fp = recall_fp(keep, hnsw_keep)
         n_docs = len(keep)
         out[tag] = {"tau": tau, "docs": n_docs, "wall_s": wall,
@@ -527,7 +551,7 @@ def phase_reference(pipe_batches, hnsw_keep, par_batches, dev) -> dict:
     log(f"reference: brute on cuda equals brute on cpu over "
         f"{len(par_batches)} batches of {len(par_batches[0][0])} (keep "
         f"masks, ids, sims); phase wall {out['phase_s']:.1f} s")
-    return out
+    return out, ref_keep
 
 
 def phase_options(par_batches, dev) -> dict:
@@ -957,6 +981,126 @@ def phase_cluster(chunks, probe, card: str, dev) -> dict:
     return out
 
 
+def baseline_parity(tag, key, opts, par_batches, par_more, dev) -> dict:
+    """One phase-10 configuration on cuda and on cpu over phase 2's
+    batches at 16,384 slots: keep masks, step-② survivors, search ids and
+    sims bit for bit, and the full HNSWState for hnsw_raw; flat_lsh then
+    deletes every third admitted row on both sides and runs two more
+    batches."""
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.index import make_pipeline
+    from repro_torch.index.pipeline import host
+    cfg = FoldConfig(capacity=16384)
+    gpu = make_pipeline(key, cfg, device=dev, **opts)
+    cpu = make_pipeline(key, cfg, device="cpu", **opts)
+    gpu.backend.track_slots = cpu.backend.track_slots = True
+    wall = {"cuda_s": 0.0, "cpu_s": 0.0}
+
+    def run(batches, label):
+        for i, (tok, ln) in enumerate(batches):
+            res = []
+            for side, pipe in (("cuda_s", gpu), ("cpu_s", cpu)):
+                t0 = time.perf_counter()
+                r = pipe.dedup_step(pipe.signatures(tok, ln))
+                res.append([host(x) for x in r])
+                wall[side] += time.perf_counter() - t0
+            (kg, bg, ig, sg), (kc, bc, ic, sc) = res
+            if not (np.array_equal(kg, kc) and np.array_equal(bg, bc)
+                    and np.array_equal(ig, ic)
+                    and np.array_equal(sg.view(np.uint32),
+                                       sc.view(np.uint32))):
+                fail(f"baselines parity ({tag}): cuda and cpu differ at "
+                     f"{label} batch {i}")
+            if key == "hnsw_raw":
+                bad = states_equal(gpu.backend.state, cpu.backend.state)
+                if bad:
+                    fail(f"baselines parity ({tag}): states differ at "
+                         f"{label} batch {i}: {bad}")
+
+    run(par_batches, "first")
+    out = {"batches": len(par_batches), "deleted": 0}
+    if key == "flat_lsh":
+        slots = [np.concatenate(p.backend.pop_slot_log()) for p in (gpu, cpu)]
+        kill = slots[0][::3]
+        n_del = [gpu.delete(kill), cpu.delete(kill)]
+        if not np.array_equal(*slots) or n_del != [len(kill)] * 2:
+            fail(f"baselines parity ({tag}): slots or deletes differ")
+        run(par_more, "after delete")
+        out.update(deleted=len(kill), batches_after=len(par_more))
+    out.update(wall, admitted=gpu.inserted)
+    if gpu.inserted != cpu.inserted:
+        fail(f"baselines parity ({tag}): admitted counts differ")
+    return out
+
+
+def phase_baselines(pipe_batches, brute_keep, par_batches, par_more, card,
+                    dev) -> dict:
+    """Table 1 on the card: each configuration of BASELINES over its prefix
+    of phase 3's batches at 2**20 slots (docs/s, stage medians, recall and
+    FP against brute's tau-0.7 masks, whose prefix is brute's verdict on
+    that prefix since brute is online), its launches (K1 on every path but
+    prefix_filter, which must launch none), then cuda against cpu."""
+    import torch
+
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.index import make_pipeline
+    from repro_torch.kernels import _lib
+    t_phase = time.perf_counter()
+    out = {"runs": {}, "parity": {}, "card": card}
+    for tag, key, opts, n_batches in BASELINES:
+        batches = pipe_batches[:n_batches]
+        torch.cuda.reset_peak_memory_stats()
+        pipe = make_pipeline(key, FoldConfig(capacity=1 << 20, tau=0.7),
+                             device=dev, **opts)
+        stats, keeps = [], []
+        _lib.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tok, ln in batches:
+            keep, st = pipe.process_batch(tok, ln)
+            if keep.shape != (len(tok),) or st["n_overflow"] != 0:
+                fail(f"baselines {tag}: bad batch result {keep.shape} {st}")
+            stats.append(st)
+            keeps.append(keep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_lib.LAUNCHES)
+        if key == "prefix_filter":
+            if launches["minhash"] != 0:
+                fail(f"baselines {tag}: the shingles-only path launched "
+                     f"K1: {launches}")
+        else:
+            require_launched(f"baselines {tag}", launches, ["minhash"])
+        keep = np.concatenate(keeps)
+        n_docs = len(keep)
+        if stats[-1]["count"] != int(keep.sum()):
+            fail(f"baselines {tag}: index count disagrees with the verdicts")
+        rec, fp = recall_fp(brute_keep[:n_docs], keep)
+        steady = stats[1:] or stats      # the first batch pays set-up
+        med = {k: statistics.median(s[k] for s in steady)
+               for k in ("t_signature", "t_in_batch", "t_search",
+                         "t_insert")}
+        out["runs"][tag] = dict(
+            key=key, opts=opts, batches=n_batches,
+            cut=f"first {n_batches} of phase 3's {len(pipe_batches)} batches",
+            docs=n_docs, wall_s=wall, docs_per_s=n_docs / wall,
+            median_stage_s=med, admitted=int(keep.sum()),
+            brute_admitted=int(brute_keep[:n_docs].sum()), recall=rec, fp=fp,
+            launches=launches,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"baselines {tag} " + json.dumps(out["runs"][tag]))
+        del pipe
+        out["parity"][tag] = baseline_parity(tag, key, opts, par_batches,
+                                             par_more, dev)
+        log(f"baselines {tag} parity: cuda equals cpu " +
+            json.dumps(out["parity"][tag]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"baselines: {len(BASELINES)} configurations, recall and FP against "
+        f"brute, cuda equals cpu for each; phase wall {out['phase_s']:.1f} s; "
+        f"{card}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1024,13 +1168,15 @@ def main() -> None:
     if sim.shape != (bitmaps.shape[0],) * 2 or not torch.isfinite(sim).all():
         fail("ops.hamming gave a bad matrix")
 
-    phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
+    _, brute_keep = phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
     phase_options(par_batches, dev)
     phase_lifecycle(pipe, more_batches, parity_pipes, par_more, dev)
     del pipe, parity_pipes
     svc = phase_service(svc_chunks, svc_fresh, depth_chunks, rot_chunks,
                         card, dev)
     clu = phase_cluster(cl_chunks, probe, card, dev)
+    base = phase_baselines(pipe_batches, brute_keep, par_batches, par_more,
+                           card, dev)
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -1046,6 +1192,11 @@ def main() -> None:
                 "pipeline": r["launches"],
                 "service": svc["main"]["launches"][r["name"]],
                 "cluster": clu["launches"][r["name"]]}
+        if r["name"] == "minhash":
+            r["path_launches"].update({
+                f"baselines/{tag}": run["launches"]["minhash"]
+                for tag, run in base["runs"].items()
+                if run["key"] != "prefix_filter"})
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

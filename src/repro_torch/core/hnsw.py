@@ -1,7 +1,8 @@
-"""Array-based HNSW — the FOLD index (port of `repro/core/hnsw.py` for the
-bitmap-Jaccard metric: batched search, the two-phase batched insert and the
-per-doc insert, each with or without the hnswlib selection heuristic, and
-delete / compact).
+"""Array-based HNSW — the FOLD index (port of `repro/core/hnsw.py`: batched
+search, the two-phase batched insert and the per-doc insert, each with or
+without the hnswlib selection heuristic, and delete / compact, under the
+three metrics: FOLD's bitmap-Jaccard and the FAISS baselines' raw
+MinHash-Jaccard and Hamming over (H,) signature lanes).
 
 State layout is the reference's, as tensors on one device:
 
@@ -43,6 +44,7 @@ from repro_torch.core.bitset import (bitset_add, bitset_nbytes, bitset_test,
                                      bitset_zeros)
 from repro_torch.core.hashing import popc
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ref import hamming_from_px
 
 __all__ = ["HNSWConfig", "HNSWState", "hnsw_init", "hnsw_grow",
            "hnsw_insert_batch", "hnsw_search", "hnsw_delete", "hnsw_compact",
@@ -103,12 +105,6 @@ def auto_query_chunk(cfg: HNSWConfig) -> int:
     per_q = max(visited_nbytes(cfg), 1)
     chunk = max(_VISITED_BUDGET_BYTES // per_q, 1)
     return int(min(4096, max(64, 1 << (chunk.bit_length() - 1))))
-
-
-def _check_supported(cfg: HNSWConfig) -> None:
-    if cfg.metric != "bitmap_jaccard":
-        raise NotImplementedError(
-            f"metric {cfg.metric!r} (the hnsw_raw backend) is not ported yet")
 
 
 def _scalar(v: int, device) -> torch.Tensor:
@@ -238,11 +234,41 @@ def _bitmap_dist(px, pa, pb) -> torch.Tensor:
     return torch.where(denom > 0, d, torch.zeros_like(d))
 
 
+def _times_recip(px: torch.Tensor, n: int) -> torch.Tensor:
+    """px * f32(1 / n) rounded once to f32, computed exactly: with
+    f32(1 / n) = m * 2**-k for a 24-bit integer m, px * m is an exact
+    int64, converted to f32 once, and the scale by 2**-k is exact. That is
+    how the reference's jitted `px / f32(n)` rounds (XLA multiplies by the
+    reciprocal); IEEE division would not."""
+    frac, exp = np.frexp(np.float32(1) / np.float32(n))
+    m = int(frac * (1 << 24))
+    return (px.to(torch.int64) * m).to(torch.float32) * (2.0 ** (int(exp) - 24))
+
+
+def _pair_dist(cfg: HNSWConfig, a, b, pa, pb) -> torch.Tensor:
+    """Distance under cfg.metric between rows a and b (last dim = words,
+    the other dims broadcast), rounded as the reference's jitted
+    `_dist_rows`:
+      bitmap_jaccard   2 px / (pa + pb + px), 0 where that denominator is 0
+      minhash_jaccard  1 - mean(lane equality), rounded once as
+                       fma(-count, f32(1 / H), 1)
+      hamming          px / (32 W), as px * f32(1 / (32 W))
+    pa/pb are the cached popcounts, read by bitmap_jaccard only."""
+    if cfg.metric == "minhash_jaccard":
+        # hamming_from_px(c, H) is 1 - c * f32(1 / H), rounded once
+        return hamming_from_px((a == b).sum(-1), cfg.words)
+    px = popc(a ^ b).sum(-1)
+    if cfg.metric == "hamming":
+        return _times_recip(px, cfg.words * 32)
+    if cfg.metric == "bitmap_jaccard":
+        return _bitmap_dist(px, pa, pb)
+    raise ValueError(f"unknown metric {cfg.metric}")
+
+
 def _dist_rows(cfg: HNSWConfig, q, qpc, vecs, pcs) -> torch.Tensor:
-    """Bitmap-Jaccard distance from each query q (n, W) to its rows vecs
-    (n or 1, K, W); (n, K) f32."""
-    px = popc(q[:, None, :] ^ vecs).sum(-1)
-    return _bitmap_dist(px, qpc[:, None], pcs)
+    """Distance from each query q (n, W) to its rows vecs (n or 1, K, W);
+    (n, K) f32."""
+    return _pair_dist(cfg, q[:, None, :], vecs, qpc[:, None], pcs)
 
 
 def _dist_ids(cfg: HNSWConfig, state: HNSWState, q, qpc, ids) -> torch.Tensor:
@@ -390,7 +416,6 @@ def hnsw_search(cfg: HNSWConfig, state: HNSWState, queries: torch.Tensor,
     Returns (ids (Q, k) int32, sims (Q, k) f32); missing results are -1 /
     -inf. ef is clamped to >= k. query_chunk: an explicit argument wins,
     else cfg.query_chunk, else auto_query_chunk; 0 disables chunking."""
-    _check_supported(cfg)
     ef = cfg.ef_search if ef is None else ef
     ef = max(ef, k)
     if query_chunk is None:
@@ -435,8 +460,8 @@ def _select_diverse(cfg: HNSWConfig, state: HNSWState, cand_ids, cand_d,
     for s in range(0, R, step):
         v = state.vectors[safe[s:s + step]]                   # (r, E, W)
         p = state.pb[safe[s:s + step]]                        # (r, E)
-        px = popc(v[:, :, None, :] ^ v[:, None, :, :]).sum(-1)
-        cc[s:s + step] = _bitmap_dist(px, p[:, :, None], p[:, None, :])
+        cc[s:s + step] = _pair_dist(cfg, v[:, :, None, :], v[:, None, :, :],
+                                    p[:, :, None], p[:, None, :])
     selected = torch.zeros((R, E), dtype=torch.bool, device=dev)
     count = torch.zeros(R, dtype=torch.int32, device=dev)
     inf = torch.full((R, E), _INF, device=dev)
@@ -716,7 +741,6 @@ def hnsw_insert_batch(cfg: HNSWConfig, state: HNSWState, vecs: torch.Tensor,
     -1 padded, consumed first. Updates `state`'s tensors in place and
     returns (state, n_inserted) with n_inserted a 0-dim device tensor
     (< mask.sum() when the index is full)."""
-    _check_supported(cfg)
     dev = state.vectors.device
     mask = torch.as_tensor(mask, device=dev).to(torch.bool)
     levels = torch.as_tensor(levels, device=dev).to(torch.int32)

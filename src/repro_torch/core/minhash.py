@@ -9,9 +9,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hashing import hash_seeds
+from repro_torch.core.shingle import shingle_hashes
 from repro_torch.kernels.ref import minhash_ref
 
-__all__ = ["minhash_from_shingles", "default_seeds", "DEFAULT_NUM_HASHES"]
+__all__ = ["minhash_from_shingles", "minhash_signatures", "default_seeds",
+           "DEFAULT_NUM_HASHES"]
 
 DEFAULT_NUM_HASHES = 112
 
@@ -25,3 +27,11 @@ def minhash_from_shingles(sh: torch.Tensor, seeds: torch.Tensor) -> torch.Tensor
     """sh (B, L) shingle hashes (0xFFFFFFFF = invalid), seeds (H,) ->
     (B, H) signatures, all int32 bits."""
     return minhash_ref(sh, seeds)
+
+
+def minhash_signatures(tokens: torch.Tensor, lengths: torch.Tensor,
+                       seeds: torch.Tensor, n: int = 5) -> torch.Tensor:
+    """End to end, plain: padded token ids (B, L) (uint32 bits) and
+    lengths (B,) -> (B, H) MinHash signatures, int32 bits, on the tensors'
+    device."""
+    return minhash_from_shingles(shingle_hashes(tokens, lengths, n), seeds)

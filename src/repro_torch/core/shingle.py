@@ -6,11 +6,12 @@ them; documents shorter than n contribute one whole-document shingle.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.hashing import UINT32_MAX_BITS, bits32, fmix32, mul32, u32
 
-__all__ = ["shingle_hashes", "num_shingles"]
+__all__ = ["shingle_hashes", "num_shingles", "token_tensors"]
 
 _POLY = 0x01000193  # FNV prime
 
@@ -38,3 +39,15 @@ def shingle_hashes(tokens: torch.Tensor, lengths: torch.Tensor,
     pos = torch.arange(L, dtype=torch.int32, device=t.device)[None, :]
     valid = pos < num_shingles(lengths.to(t.device), n)[:, None]
     return torch.where(valid, h, torch.full_like(h, UINT32_MAX_BITS))
+
+
+def token_tensors(tokens, lengths) -> tuple[torch.Tensor, torch.Tensor]:
+    """A batch of documents as the port holds it: tokens (B, L) uint32 ids
+    (numpy or tensor) as an int32-bits tensor, lengths (B,) as int32. Host
+    arrays stay on the CPU; tensors keep their device."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.from_numpy(
+            np.ascontiguousarray(tokens, dtype=np.uint32).view(np.int32))
+    if not isinstance(lengths, torch.Tensor):
+        lengths = torch.as_tensor(np.asarray(lengths, np.int32))
+    return tokens, lengths

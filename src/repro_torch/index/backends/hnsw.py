@@ -1,5 +1,6 @@
-"""FOLD's bitmap-HNSW backend behind the `repro_torch.index` protocol (port
-of `_HNSWLifecycle` and `HNSWBitmapBackend` from
+"""FOLD's bitmap-HNSW backend and the FAISS (Jaccard) / FAISS (Hamming)
+baseline behind the `repro_torch.index` protocol (port of `_HNSWLifecycle`,
+`HNSWBitmapBackend` and `RawHNSWBackend` from
 `repro/index/backends/hnsw.py`).
 
 Step ② scores the batch with the bitmap-Jaccard kernel (K2, or K3 under
@@ -14,6 +15,11 @@ either package restores into the other.
 the backend's device and rescores the k retrieved candidates by exact lane
 agreement inside `search` (sims then in MinHash space, `tau_index =
 cfg.tau`).
+
+`hnsw_raw` runs the same index machinery over the raw (H,) MinHash lanes
+(`pcs` all zero), scored by core/hnsw.py's raw metrics; its step ② is the
+plain pairwise matrix of the same metric, as in the reference (which
+routes neither metric through a kernel there).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.bitmap import pairwise_hamming, pairwise_minhash_jaccard
 from repro_torch.core.dedup import FoldConfig, batch_jaccard, bitmap_tau
 from repro_torch.core.hnsw import (HNSWConfig, HNSWState, hnsw_compact,
                                    hnsw_delete, hnsw_grow, hnsw_init,
@@ -33,7 +40,7 @@ from repro_torch.device import resolve_device
 from repro_torch.index.protocol import BATCH_FIRST, DedupBackend, SigBatch, SigSpec
 from repro_torch.index.registry import register
 
-__all__ = ["HNSWBitmapBackend"]
+__all__ = ["HNSWBitmapBackend", "RawHNSWBackend"]
 
 
 def _lane_fraction_f64(eq: torch.Tensor) -> torch.Tensor:
@@ -400,6 +407,83 @@ class HNSWBitmapBackend(_HNSWLifecycle):
                 "dead": self._n_dead, "free": len(self._free or [])}
 
 
+class RawHNSWBackend(_HNSWLifecycle):
+    """FAISS (Jaccard) / FAISS (Hamming): FOLD's index machinery over raw
+    (H,) MinHash signatures scored by
+      - minhash_jaccard: fraction of equal lanes (tie-heavy; low recall), or
+      - hamming: bit agreement across the packed lanes (fast; misaligned).
+    tau applies directly in the metric's own space. As in the reference,
+    FoldConfig.select_heuristic does not reach this index."""
+
+    name = "hnsw_raw"
+    order = BATCH_FIRST
+
+    def __init__(self, cfg: FoldConfig, metric: str = "minhash_jaccard",
+                 device: str | torch.device | None = None):
+        if metric not in ("minhash_jaccard", "hamming"):
+            raise ValueError(f"unknown raw metric {metric!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.metric = metric
+        self.hnsw_cfg = HNSWConfig(
+            capacity=cfg.capacity, words=cfg.num_hashes, M=cfg.M, M0=cfg.M0,
+            ef_construction=cfg.ef_construction, ef_search=cfg.ef_search,
+            max_level=cfg.max_level, metric=metric,
+            query_chunk=cfg.query_chunk,
+            batched_insert=cfg.batched_insert)
+        self.state: HNSWState = hnsw_init(self.hnsw_cfg, self.device)
+        self._batches = 0     # level-seed basis: monotone, sync-free
+
+    @property
+    def sig_spec(self) -> SigSpec:
+        return SigSpec(num_hashes=self.cfg.num_hashes,
+                       shingle_n=self.cfg.shingle_n, seed=self.cfg.seed,
+                       use_kernel=self.cfg.use_kernel,
+                       needs=frozenset({"sigs"}))
+
+    @property
+    def tau_batch(self) -> float:
+        return self.cfg.tau
+
+    @property
+    def tau_index(self) -> float:
+        return self.cfg.tau
+
+    @property
+    def capacity(self) -> int:
+        return self.hnsw_cfg.capacity
+
+    def batch_sim(self, sig: SigBatch):
+        pair = (pairwise_minhash_jaccard if self.metric == "minhash_jaccard"
+                else pairwise_hamming)
+        return pair(sig.sigs, sig.sigs)
+
+    def search(self, sig: SigBatch):
+        return hnsw_search(self.hnsw_cfg, self.state, sig.sigs, k=self.cfg.k)
+
+    def insert(self, sig: SigBatch, keep, search_ids=None):
+        B = sig.sigs.shape[0]
+        levels = torch.from_numpy(sample_levels(
+            B, self.hnsw_cfg, seed=self._batches + self.cfg.seed + 1))
+        self._batches += 1
+        free_dev, free_host = self._prepare_slots(keep, B)
+        self._record_insert(sig, keep, free_host)
+        pcs = torch.zeros(B, dtype=torch.int32, device=self.device)
+        self.state, _ = hnsw_insert_batch(
+            self.hnsw_cfg, self.state, sig.sigs, pcs, levels.to(self.device),
+            torch.as_tensor(keep, device=self.device),
+            seed_ids=self._seeds_from(search_ids), free_slots=free_dev)
+        return self.state.count     # timing handle
+
+    def stats_schema(self) -> tuple[str, ...]:
+        return ("count", "capacity", "metric", "deleted", "dead", "free")
+
+    def stats(self) -> dict:
+        return {"count": self.inserted, "capacity": self.capacity,
+                "metric": self.metric, "deleted": self._n_deleted,
+                "dead": self._n_dead, "free": len(self._free or [])}
+
+
 @register("hnsw")
 def _make_hnsw(cfg: FoldConfig | None = None,
                device: str | torch.device | None = None,
@@ -407,3 +491,13 @@ def _make_hnsw(cfg: FoldConfig | None = None,
     if opts:
         cfg = dataclasses.replace(cfg or FoldConfig(), **opts)
     return HNSWBitmapBackend(cfg or FoldConfig(), device=device)
+
+
+@register("hnsw_raw")
+def _make_hnsw_raw(cfg: FoldConfig | None = None,
+                   metric: str = "minhash_jaccard",
+                   device: str | torch.device | None = None,
+                   **opts) -> RawHNSWBackend:
+    if opts:    # FoldConfig overrides (e.g. query_chunk), like "hnsw"
+        cfg = dataclasses.replace(cfg or FoldConfig(), **opts)
+    return RawHNSWBackend(cfg or FoldConfig(), metric=metric, device=device)

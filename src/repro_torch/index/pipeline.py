@@ -1,33 +1,44 @@
 """One generic online-dedup pipeline over a registered backend (port of
-`repro/index/pipeline.py`, the BATCH_FIRST admission loop).
+`repro/index/pipeline.py`).
 
-Owns step ① signature generation, ② in-batch cleanup (greedy-leader sweep
-over the backend's similarity matrix) and ④ the threshold filter, plus the
-Fig. 7 per-stage timers, the exact-duplicate front door
-(`FoldConfig.exact_filter`) and the read-only `query`; the backend
-contributes ③ search and ⑤ insert and the capacity, snapshot and deletion
-lifecycle, which the pipeline delegates. `process_batch` is the blocking
-composition: each stage ends in a device synchronisation so its
+Owns step ① signature generation (what the backend's SigSpec asks for:
+MinHash lanes, bitmaps, or raw shingles with no MinHash at all), ② in-batch
+cleanup (greedy-leader sweep over the backend's similarity matrix, or the
+backend's own `in_batch_keep`) and ④ the threshold filter, in the
+backend's admission order (BATCH_FIRST, or INDEX_FIRST for the join-style
+prefix filter), plus the Fig. 7 per-stage timers, the exact-duplicate
+front door (`FoldConfig.exact_filter`) and the read-only `query`; the
+backend contributes ③ search and ⑤ insert and the capacity, snapshot and
+deletion lifecycle, which the pipeline delegates. `process_batch` is the
+blocking composition: each stage ends in a device synchronisation so its
 wall-clock time is the stage's own.
 
-Not ported yet: the INDEX_FIRST ordering and the `fused_step` hook; only
-the `prefix_filter` and `hnsw_sharded` backends use them.
+Host-side and device results. The device backends (`hnsw`, `hnsw_raw`,
+`brute`) return tensors from `search`; the host-side ones (`dpk`,
+`flat_lsh`, `prefix_filter`) return numpy arrays, as in the reference.
+Whatever `search` returns, the masks built from it (and handed to
+`insert`, and returned in the StepResult) live on the same side
+(`_beside`); `host` brings any of them to numpy.
+
+Not ported: the `fused_step` hook, used only by `hnsw_sharded`.
 """
 from __future__ import annotations
 
+import inspect
 import time
 from typing import TYPE_CHECKING, Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.index.protocol import DedupBackend, SigBatch, StepResult
+from repro_torch.index.protocol import (BATCH_FIRST, INDEX_FIRST, DedupBackend,
+                                        SigBatch, StepResult)
 
 if TYPE_CHECKING:
     from repro_torch.index.exact import ExactDupFilter
 
 __all__ = ["DedupPipeline", "QueryResult", "greedy_leader",
-           "greedy_leader_split"]
+           "greedy_leader_split", "host"]
 
 
 class QueryResult(NamedTuple):
@@ -78,6 +89,20 @@ def _ready(x: Any) -> None:
         torch.cuda.synchronize(x.device)
 
 
+def host(x: Any) -> np.ndarray:
+    """A step's array on the host: a tensor is copied back, a numpy array
+    (a host-side backend's result) passes through."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _beside(mask: Any, ref: Any) -> Any:
+    """`mask` on the side `ref` (a search result) lives: numpy when ref is
+    numpy (a host-side backend), else a tensor on ref's device."""
+    if isinstance(ref, np.ndarray):
+        return host(mask)
+    return torch.as_tensor(mask, device=ref.device)
+
+
 class DedupPipeline:
     """Host-side orchestration of online dedup over an evolving corpus."""
 
@@ -87,7 +112,12 @@ class DedupPipeline:
         self.device = backend.device
         spec = backend.sig_spec
         self._spec = spec
-        self._seeds = hash_seeds(spec.num_hashes, spec.seed, self.device)
+        self._seeds = (hash_seeds(spec.num_hashes, spec.seed, self.device)
+                       if ({"sigs", "bitmaps"} & spec.needs) else None)
+        # step ③'s neighbor ids reach only an insert that declares
+        # `search_ids` (the protocol's advisory search-reuse parameter)
+        self._insert_takes_search_ids = (
+            "search_ids" in inspect.signature(backend.insert).parameters)
         # the exact-duplicate front door, opt-in through the shared config
         self.exact: "Optional[ExactDupFilter]" = None
         if getattr(getattr(backend, "cfg", None), "exact_filter", False):
@@ -145,31 +175,47 @@ class DedupPipeline:
 
     # -- step ① -------------------------------------------------------------
     def signatures(self, tokens: Any, lengths: Any) -> SigBatch:
-        """shingle → MinHash (→ bitmap + popcounts when the backend's
-        SigSpec needs them) on the pipeline's device. tokens (B, L) uint32
-        ids, numpy or tensor."""
-        # deferred: repro_torch.core.dedup imports this module
-        from repro_torch.core.dedup import fold_signatures
-        if not isinstance(tokens, torch.Tensor):
-            tokens = torch.from_numpy(
-                np.ascontiguousarray(tokens, dtype=np.uint32).view(np.int32))
-        lengths = torch.as_tensor(np.asarray(lengths, np.int32)
-                                  if not isinstance(lengths, torch.Tensor)
-                                  else lengths)
-        sigs, bitmaps, pcs = fold_signatures(
-            self._spec, self._seeds, tokens, lengths,
-            with_bitmaps="bitmaps" in self._spec.needs)
-        return SigBatch(sigs=sigs, bitmaps=bitmaps, pcs=pcs)
+        """shingle → (MinHash → bitmap + popcounts) per the backend's
+        SigSpec, on the pipeline's device; a spec that needs neither sigs
+        nor bitmaps computes no MinHash. tokens (B, L) uint32 ids, numpy
+        or tensor."""
+        from repro_torch.core import bitmap as bm
+        from repro_torch.core.shingle import shingle_hashes, token_tensors
+        from repro_torch.kernels import ops
+        spec = self._spec
+        tokens, lengths = token_tensors(tokens, lengths)
+        sh = shingle_hashes(tokens.to(self.device), lengths.to(self.device),
+                            spec.shingle_n)
+        sigs = bitmaps = pcs = None
+        if self._seeds is not None:
+            sigs = ops.minhash(sh, self._seeds, use_kernel=spec.use_kernel)
+        if "bitmaps" in spec.needs:
+            bitmaps = bm.pack_bitmaps(sigs, T=spec.T)
+            pcs = bm.popcount(bitmaps)
+        return SigBatch(sigs=sigs, bitmaps=bitmaps, pcs=pcs,
+                        shingles=sh if "shingles" in spec.needs else None)
+
+    def _insert(self, sig: SigBatch, keep: Any, search_ids: Any) -> Any:
+        """Step ⑤, with the search-reuse ids where insert declares them."""
+        if self._insert_takes_search_ids:
+            return self.backend.insert(sig, keep, search_ids=search_ids)
+        return self.backend.insert(sig, keep)
 
     # -- steps ②-⑤ ----------------------------------------------------------
     def dedup_step(self, sig: SigBatch, valid: Any = None,
                    timers: dict[str, Any] | None = None) -> StepResult:
-        """In-batch cleanup, index search, threshold filter, admit uniques.
+        """In-batch cleanup, index search, threshold filter, admit uniques,
+        in the backend's order.
 
         valid: optional (B,) bool — False rows are never admitted.
         timers: a dict makes every stage block and record its wall-clock
         time under t_in_batch / t_search / t_insert."""
-        return self._step_batch_first(sig, valid, timers)
+        order = self.backend.order
+        if order == BATCH_FIRST:
+            return self._step_batch_first(sig, valid, timers)
+        if order == INDEX_FIRST:
+            return self._step_index_first(sig, valid, timers)
+        raise ValueError(f"unknown admission order {order!r}")
 
     def _step_batch_first(self, sig: SigBatch, valid: Any,
                           timers: dict[str, Any] | None) -> StepResult:
@@ -189,17 +235,55 @@ class DedupPipeline:
             _ready(dup_index)
             timers["t_search"] = time.perf_counter() - t0
 
+        keep_in_batch = _beside(keep_in_batch, sims)
         keep = keep_in_batch & ~dup_index
         if valid is not None:
-            keep = keep & torch.as_tensor(valid, device=keep.device)
+            keep = keep & _beside(valid, sims)
 
         t0 = time.perf_counter()
-        handle = be.insert(sig, keep, search_ids=ids)
+        handle = self._insert(sig, keep, ids)
         if block:
             _ready(handle)
             timers["t_insert"] = time.perf_counter() - t0
         return StepResult(keep=keep, keep_in_batch=keep_in_batch,
                           ids=ids, sims=sims)
+
+    def _step_index_first(self, sig: SigBatch, valid: Any,
+                          timers: dict[str, Any] | None) -> StepResult:
+        """Join-style admission: corpus duplicates are excluded BEFORE the
+        in-batch sweep, so an index duplicate never suppresses a later
+        in-batch near-duplicate. The sweep is the backend's own
+        `in_batch_keep` when it has one."""
+        be = self.backend
+        block = timers is not None
+
+        t0 = time.perf_counter()
+        ids, sims = be.search(sig)
+        dup_index = host((sims >= be.tau_index).any(-1))
+        if block:
+            timers["t_search"] = time.perf_counter() - t0
+
+        eligible = ~dup_index
+        if valid is not None:
+            eligible = eligible & host(valid)
+
+        t0 = time.perf_counter()
+        if hasattr(be, "in_batch_keep"):
+            keep, hit = be.in_batch_keep(sig, eligible)
+        else:
+            keep, hit = greedy_leader_split(be.batch_sim(sig), be.tau_batch,
+                                            eligible)
+        keep, hit = _beside(keep, sims), _beside(hit, sims)
+        if block:
+            _ready(keep)
+            timers["t_in_batch"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        handle = self._insert(sig, keep, ids)
+        if block:
+            _ready(handle)
+            timers["t_insert"] = time.perf_counter() - t0
+        return StepResult(keep=keep, keep_in_batch=~hit, ids=ids, sims=sims)
 
     def _exact_hits(self, tokens: Any, lengths: Any
                     ) -> Tuple[list, np.ndarray, np.ndarray]:
@@ -254,14 +338,14 @@ class DedupPipeline:
 
         t0 = time.perf_counter()
         sig = self.signatures(tokens, lengths)
-        _ready(sig.pcs if sig.pcs is not None else sig.sigs)
+        _ready(next(a for a in reversed(sig) if a is not None))
         stats["t_signature"] = time.perf_counter() - t0
 
         valid = torch.from_numpy(~hit) if hit.any() else None
         res = self.dedup_step(sig, valid=valid, timers=stats)
 
-        keep = res.keep.cpu().numpy()
-        keep_in_batch = res.keep_in_batch.cpu().numpy()
+        keep = host(res.keep)
+        keep_in_batch = host(res.keep_in_batch)
         if hashes is not None:
             for i in np.flatnonzero(keep):
                 self.exact.add(hashes[int(i)])
@@ -300,8 +384,8 @@ class DedupPipeline:
                                exact_hit=hit)
         sig = self.signatures(tokens, lengths)
         ids_t, sims_t = self.backend.search(sig)
-        ids = ids_t.cpu().numpy().astype(np.int32)
-        sims = sims_t.cpu().numpy().astype(np.float32)
+        ids = host(ids_t).astype(np.int32)
+        sims = host(sims_t).astype(np.float32)
         is_dup = (sims >= np.float32(self.backend.tau_index)).any(axis=-1)
         if hit.any():
             is_dup = is_dup | hit

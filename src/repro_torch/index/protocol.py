@@ -3,18 +3,26 @@
 The admission loop is ① signature generation → ② in-batch cleanup →
 ③ index search → ④ threshold filter → ⑤ admit uniques; steps ①②④ are
 shared (`index.pipeline.DedupPipeline`), a backend supplies ③ and ⑤ over
-one signature representation plus the capacity lifecycle. Arrays are
-torch tensors on the backend's device.
+one signature representation plus the capacity lifecycle. Signatures
+are torch tensors on the backend's device; a host-side backend (`dpk`,
+`flat_lsh`, `prefix_filter`, host stores by design, as in the reference)
+answers `search` with numpy arrays.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Protocol, runtime_checkable
 
-__all__ = ["SigSpec", "SigBatch", "StepResult", "DedupBackend", "BATCH_FIRST"]
+__all__ = ["SigSpec", "SigBatch", "StepResult", "DedupBackend",
+           "BATCH_FIRST", "INDEX_FIRST"]
 
-# Admission-loop ordering of FOLD and every sketch baseline: the in-batch
-# greedy-leader sweep first, then the index filter over the searches.
+# Admission-loop orderings (see DedupPipeline.dedup_step):
+#   BATCH_FIRST — FOLD and every sketch baseline: in-batch greedy-leader
+#     sweep first, then the index filter over the searches.
+#   INDEX_FIRST — join-style semantics (prefix filter): corpus duplicates
+#     are excluded *before* the sweep, so an index duplicate never
+#     suppresses a later in-batch near-duplicate.
 BATCH_FIRST = "batch_first"
+INDEX_FIRST = "index_first"
 
 
 class SigSpec(NamedTuple):
@@ -45,7 +53,9 @@ class SigBatch(NamedTuple):
 
 
 class StepResult(NamedTuple):
-    """Outcome of one dedup_step, as device tensors.
+    """Outcome of one dedup_step: tensors on the backend's device, or
+    numpy arrays for a host-side backend (the side its `search` answers
+    on).
 
     keep (B,) bool admit mask; keep_in_batch (B,) bool step-② survivors;
     ids (B, k) int32 neighbor ids (-1 = none); sims (B, k) f32."""
@@ -61,17 +71,29 @@ class DedupBackend(Protocol):
     representation (see the reference protocol for the full contract).
 
       name, order, sig_spec, tau_batch, tau_index, capacity, inserted
-      device                          the torch device of its state
+      device                          the torch device of its signatures
+                                      (and of its index, unless host-side)
       batch_sim(sig) -> (B, B)        step-② similarity matrix
       search(sig) -> (ids, sims)      step ③ against the pre-batch corpus
+                                      (tensors, or numpy on the host)
       insert(sig, keep, search_ids=None)
-                                      step ⑤; search_ids are advisory
-                                      discovery seeds. OVERFLOW CONTRACT:
+                                      step ⑤; keep lives where search's
+                                      results do; search_ids are advisory
+                                      discovery seeds, passed only to an
+                                      insert that declares them.
+                                      OVERFLOW CONTRACT:
                                       never silently drop a keep-row —
                                       refuse the batch instead.
       grow(new_capacity)              re-allocate, graph kept exactly
       save(dir, step, async_write=False) / restore(dir, step=None) -> step
       stats_schema() / stats()
+
+    Optional hook (DedupPipeline checks hasattr):
+
+      in_batch_keep(sig, eligible) -> (keep, batch_hit)
+          Replace the sim-matrix greedy sweep with a backend-native one
+          (e.g. lazy host-side set comparisons). Only consulted for
+          INDEX_FIRST backends, with eligible = ~index_dup ∧ valid (numpy).
 
     Capability flags (class attributes with defaults):
 

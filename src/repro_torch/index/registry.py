@@ -1,8 +1,9 @@
 """String-keyed backend registry (port of `repro/index/registry.py`).
 
 Factories take the shared `FoldConfig` plus keyword options; the
-built-in `hnsw` and `brute` backends register on first use. Keys the reference has
-but the port does not yet are refused by name.
+built-in backends (`hnsw`, `hnsw_raw`, `brute`, `dpk`, `flat_lsh`,
+`prefix_filter`) register on first use. `hnsw_sharded`, the one key the
+reference has and the port does not yet, is refused by name.
 
 The accepted option set is derived from the live factory signature
 (`accepted_opts`), as in the reference. The port's factories also take
@@ -29,8 +30,7 @@ Factory = Callable[..., "DedupBackend"]
 _REGISTRY: Dict[str, Factory] = {}
 # signature-derived accepted_opts, memoised per key; register() invalidates
 _OPTS_CACHE: Dict[str, Tuple[str, ...]] = {}
-_NOT_PORTED = ("hnsw_raw", "hnsw_sharded", "dpk", "flat_lsh",
-               "prefix_filter")
+_NOT_PORTED = ("hnsw_sharded",)
 
 
 def register(name: str, factory: Optional[Factory] = None) -> Any:

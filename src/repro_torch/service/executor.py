@@ -35,7 +35,7 @@ from typing import Any, Callable
 
 import numpy as np
 
-from repro_torch.index.pipeline import DedupPipeline
+from repro_torch.index.pipeline import DedupPipeline, host
 from repro_torch.index.protocol import StepResult
 from repro_torch.service.batcher import MicroBatch
 
@@ -112,13 +112,14 @@ class PipelinedExecutor:
     def _collect_one(self) -> BatchOutcome:
         mb, res, t0, timers = self._inflight.popleft()
         # THE materialization point: the verdicts leave the device here,
-        # and nowhere else on the path
+        # and nowhere else on the path (a host-side backend's are numpy
+        # already)
         out = BatchOutcome(
             batch=mb,
-            keep=res.keep.cpu().numpy(),
-            keep_in_batch=res.keep_in_batch.cpu().numpy(),
-            ids=res.ids.cpu().numpy(),
-            sims=res.sims.cpu().numpy(),
+            keep=host(res.keep),
+            keep_in_batch=host(res.keep_in_batch),
+            ids=host(res.ids),
+            sims=host(res.sims),
             wall_s=time.perf_counter() - t0,
             stage_times=timers,
         )

@@ -9,10 +9,10 @@ Composition of the serving subsystem:
                         IndexManager (growth + snapshots) ┘
 
 The index organization is pluggable: `ServiceConfig.backend` names any
-`repro_torch.index` registry key ("hnsw" — FOLD, the default — "brute", or
-a third-party registration; the reference's other keys are refused by
-name until they are ported), and the service composes the generic
-DedupPipeline for it. It runs on `ServiceConfig.device`: cuda unless
+`repro_torch.index` registry key ("hnsw" — FOLD, the default — "hnsw_raw",
+"brute", "dpk", "flat_lsh", "prefix_filter", or a third-party
+registration; "hnsw_sharded" is refused by name until it is ported), and
+the service composes the generic DedupPipeline for it. It runs on `ServiceConfig.device`: cuda unless
 "cpu" is asked for, and with no card a cuda service raises.
 Every backend gets micro-batching, pipelined execution, growth watermarks,
 and snapshot rotation for free; backends that declare

@@ -1,8 +1,9 @@
 """The DedupBackend contract battery of tests/test_contract.py, run on the
-PyTorch port's registry (`repro_torch.index.available()`: "brute" and
-"hnsw") on the CPU, driven by the capability flags each backend declares.
-The port's backends take `device="cpu"`; the battery is otherwise the
-reference's, assertion for assertion."""
+PyTorch port's registry (`repro_torch.index.available()`: "brute", "dpk",
+"flat_lsh", "hnsw", "hnsw_raw" and "prefix_filter", every reference key
+but "hnsw_sharded") on the CPU, driven by the capability flags each
+backend declares. The port's backends take `device="cpu"`; the battery is
+otherwise the reference's, assertion for assertion."""
 import dataclasses
 
 import numpy as np

@@ -305,6 +305,37 @@ def test_cuda_options_and_compact_match_cpu(cuda, opts):
             assert not _same_state(pipes[0].state, pipes[1].state)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("key,opts", [
+    ("hnsw_raw", {"metric": "minhash_jaccard"}),
+    ("hnsw_raw", {"metric": "hamming"}), ("dpk", {"rebuild": True}),
+    ("flat_lsh", {"topk": 4}), ("flat_lsh", {"topk": 160}),
+    ("prefix_filter", {})],
+    ids=["raw-jaccard", "raw-hamming", "dpk", "flat4", "flat160", "prefix"])
+def test_cuda_baselines_match_cpu(cuda, key, opts):
+    """Each newly ported backend on the card equals itself on the CPU over
+    two batches (keep masks, query ids and sims bit for bit; the full
+    state for hnsw_raw). Step ① launched K1 on every key but
+    prefix_filter, which runs no MinHash."""
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.index import make_pipeline
+    cfg = FoldConfig(capacity=512, M=8, M0=16, ef_construction=32,
+                     ef_search=32)
+    pipes = [make_pipeline(key, cfg, device=d, **opts) for d in (cuda, "cpu")]
+    _lib.reset_launches()
+    for i, (tok, ln) in enumerate(_cc_batches(2, 64, seed=4)):
+        keeps = [p.process_batch(tok, ln)[0] for p in pipes]
+        assert np.array_equal(*keeps), i
+        res = [p.query(tok, ln) for p in pipes]
+        assert np.array_equal(res[0].ids, res[1].ids), i
+        assert np.array_equal(res[0].sims.view(np.uint32),
+                              res[1].sims.view(np.uint32)), i
+        if key == "hnsw_raw":
+            assert not _same_state(pipes[0].backend.state,
+                                   pipes[1].backend.state), i
+    assert (_lib.LAUNCHES["minhash"] > 0) == (key != "prefix_filter")
+
+
 def _verdicts(vs):
     return [(v.doc_id, v.admitted, v.reason, v.neighbor_id,
              int(np.float32(v.similarity).view(np.uint32))) for v in vs]

@@ -163,7 +163,9 @@ def test_helpers_match_jax():
 def test_unported_paths_raise_by_name(built):
     """The per-doc path (`_insert_one`) and the selection heuristic, once
     refused by name, now build the JAX package's graph into a JAX-built
-    index; the `hnsw_raw` metrics are still refused by name."""
+    index; so do the `hnsw_raw` metrics (tests/test_torch_raw.py), and a
+    metric neither package knows is refused by name, as the reference's
+    `_dist_rows` refuses it."""
     vecs, pcs = built["vecs"][N_BUILD:], built["pcs"][N_BUILD:]
     B = len(vecs)
     levels = J.sample_levels(B, CFG, seed=5)
@@ -185,8 +187,8 @@ def test_unported_paths_raise_by_name(built):
                 got[field], np.asarray(getattr(jst, field)), err_msg=field)
     tcfg = T.HNSWConfig(**CFG._asdict())
     x = torch.zeros((2, 32), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="hnsw_raw"):
-        T.hnsw_search(tcfg._replace(metric="hamming"), T.hnsw_init(tcfg, "cpu"),
+    with pytest.raises(ValueError, match="unknown metric"):
+        T.hnsw_search(tcfg._replace(metric="cosine"), T.hnsw_init(tcfg, "cpu"),
                       x, k=2)
 
 

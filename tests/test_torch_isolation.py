@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch` and chip_smoke.py import neither
 jax, the JAX package `repro` nor msgpack, at run time or anywhere in their
-source, and the port saves and restores its checkpoints, and serves a
+source, and the port saves and restores its checkpoints (every ported
+backend, the baselines through `repro_torch.baselines`), and serves a
 service with snapshots, where none of the three can be imported."""
 import ast
 import os
@@ -21,7 +22,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.oracle, repro_torch.index.exact, "
             "repro_torch.lifecycle, repro_torch.train.checkpoint, "
             "repro_torch.service, repro_torch.cluster, "
-            "repro_torch.data.ingest; "
+            "repro_torch.data.ingest, repro_torch.baselines, "
+            "repro_torch.index.backends.lsh, "
+            "repro_torch.index.backends.prefix, repro_torch.core.minhash; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -71,6 +74,21 @@ for key in ("hnsw", "brute"):
     back = make_pipeline(key, cfg, device="cpu")
     assert back.restore(sys.argv[1] + "/" + key) == 1
     assert back.inserted == pipe.inserted
+    assert (back.process_batch(*nxt)[0] == pipe.process_batch(*nxt)[0]).all()
+import repro_torch.baselines as tb
+for key, make_pipe in (
+        ("hnsw_raw", lambda: tb.RawHNSWPipeline(
+            metric="hamming", capacity=128, M=8, M0=16, ef_construction=32,
+            ef_search=32, device="cpu")),
+        ("dpk", lambda: tb.DPKPipeline(capacity=128, device="cpu")),
+        ("flat_lsh", lambda: tb.FlatLSHPipeline(capacity=128, device="cpu")),
+        ("prefix_filter", lambda: tb.PrefixFilterPipeline(device="cpu"))):
+    pipe = make_pipe()
+    pipe.process_batch(tokens, lengths)
+    pipe.save(sys.argv[1] + "/" + key, 1)
+    back = make_pipe()
+    assert back.restore(sys.argv[1] + "/" + key) == 1
+    assert back.inserted == pipe.inserted > 0
     assert (back.process_batch(*nxt)[0] == pipe.process_batch(*nxt)[0]).all()
 from repro_torch.service import DedupService, ServiceConfig
 svc = DedupService(ServiceConfig(
