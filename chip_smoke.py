@@ -47,6 +47,16 @@ Phases (any failure exits non-zero and prints no result):
      0.7, K1's launches (none on prefix_filter, which runs no MinHash);
      each on cuda equals it on cpu over phase 2's batches (hnsw_raw's full
      state too; flat_lsh through deletes and two more batches)
+ 11. sharded — hnsw_sharded at FoldConfig() widths, 4 shards of 2**18
+     slots (phase 3's 2**20 in all), over phase 3's first SHARDED_BATCHES
+     batches: docs/s, the median t_fused_step, a profiled batch, recall
+     and FP against phase 5's brute masks at the matched MinHash tau beside
+     phase 3's hnsw over the same prefix, agreement with phase 3, K1 once
+     per batch and K2-K4 never; shards=1 at 2**20 equals phase 3's masks;
+     4 shards on cuda equal cpu (keep masks, every per-shard state);
+     delete a third, compact, reuse, save, restore at 4 (equal), at 8
+     (scale-out) and at 2 (refused); DedupService(shards=4) equals a
+     process_batch loop over its micro-batches
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -90,6 +100,17 @@ BASELINES = [
     ("faiss_jaccard", "hnsw_raw", {"metric": "minhash_jaccard"}, 16),
     ("faiss_hamming", "hnsw_raw", {"metric": "hamming"}, 16),
 ]
+
+# phase 11: hnsw_sharded at FoldConfig() widths. The main run is cut to
+# phase 3's first 16 batches (8,192 docs) by the run's time limit: every
+# shard searches every query, so a batch costs about 4 of phase 3's
+# searches. The shards=1 run takes phase 3's first 8 batches.
+SHARDS = 4
+SHARD_CAPACITY = 1 << 18         # per shard: 2**20 slots in all
+SHARDED_BATCHES = 16
+SHARDED_ONE_BATCHES = 8
+SHARDED_PARITY_CAPACITY = 4096   # per shard, cuda against cpu
+SHARDED_SERVICE_DOCS = 2048
 
 # published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -496,14 +517,15 @@ def phase_reference(pipe_batches, hnsw_keep, par_batches, dev
                     ) -> tuple[dict, np.ndarray]:
     """brute on the card over phase 3's batches: docs/s, and phase 3's
     hnsw keep masks against it; then brute on cuda vs cpu. Returns the
-    record and brute's keep mask at tau 0.7 (phase 10's ground truth)."""
+    record and brute's keep masks by tag: at tau 0.7 (phase 10's ground
+    truth) and at the matched MinHash tau (phase 11's)."""
     import torch
 
     from repro_torch.core.dedup import FoldConfig, bitmap_tau
     from repro_torch.index import make_pipeline
     from repro_torch.kernels import _lib
     t_phase = time.perf_counter()
-    out, ref_keep = {}, None
+    out, masks = {}, {}
     hnsw_cfg = FoldConfig(capacity=1 << 20)
     # brute at the default tau (0.7, MinHash space: the benchmark
     # protocol) and at the MinHash tau phase 3's bitmap tau stands for
@@ -521,8 +543,7 @@ def phase_reference(pipe_batches, hnsw_keep, par_batches, dev
         launches = dict(_lib.LAUNCHES)
         require_launched(f"brute {tag}", launches, ["minhash"])
         keep = np.concatenate(keeps)
-        if tag == "tau_0.7":
-            ref_keep = keep
+        masks[tag] = keep
         rec, fp = recall_fp(keep, hnsw_keep)
         n_docs = len(keep)
         out[tag] = {"tau": tau, "docs": n_docs, "wall_s": wall,
@@ -551,7 +572,7 @@ def phase_reference(pipe_batches, hnsw_keep, par_batches, dev
     log(f"reference: brute on cuda equals brute on cpu over "
         f"{len(par_batches)} batches of {len(par_batches[0][0])} (keep "
         f"masks, ids, sims); phase wall {out['phase_s']:.1f} s")
-    return out, ref_keep
+    return out, masks
 
 
 def phase_options(par_batches, dev) -> dict:
@@ -715,6 +736,18 @@ def verdict_tuples(verdicts) -> list:
              int(np.float32(v.similarity).view(np.uint32))) for v in verdicts]
 
 
+def replay_micro_batches(ref, emitted, verdicts) -> tuple:
+    """The valid rows of a service's emitted micro-batches through
+    ref.process_batch, in emission order. Returns (the loop's keep mask,
+    the service's verdicts in the same doc order); padding rows trail
+    every micro-batch and are never admitted, so the two must be equal."""
+    keep_ref = np.concatenate([
+        ref.process_batch(mb.tokens[:mb.n_docs], mb.lengths[:mb.n_docs])[0]
+        for mb in emitted])
+    order = np.concatenate([mb.doc_ids[:mb.n_docs] for mb in emitted])
+    return keep_ref, np.asarray([v.admitted for v in verdicts])[order]
+
+
 def run_service(svc, chunks) -> tuple[list, float]:
     """Submit every chunk, flush, and collect the verdicts; returns them
     and the wall seconds of submit + flush (the card synchronised)."""
@@ -773,14 +806,9 @@ def phase_service(chunks, fresh, depth_chunks, rot_chunks, card: str,
         "launches": launches}
     log("service " + json.dumps(out["main"]))
     # the same micro-batches, valid rows only, through process_batch on a
-    # second card pipeline: padding rows trail every batch and are never
-    # admitted, so the verdicts and the index must be equal
+    # second card pipeline: the verdicts and the index must be equal
     ref = FoldPipeline(FoldConfig(capacity=SERVING_CAPACITY), device=dev)
-    keep_ref = np.concatenate([
-        ref.process_batch(mb.tokens[:mb.n_docs], mb.lengths[:mb.n_docs])[0]
-        for mb in emitted])
-    order = np.concatenate([mb.doc_ids[:mb.n_docs] for mb in emitted])
-    keep_svc = np.asarray([v.admitted for v in verdicts])[order]
+    keep_ref, keep_svc = replay_micro_batches(ref, emitted, verdicts)
     if not np.array_equal(keep_ref, keep_svc):
         fail(f"service: verdicts differ from the process_batch loop at "
              f"{int((keep_ref != keep_svc).sum())} docs")
@@ -1101,6 +1129,251 @@ def phase_baselines(pipe_batches, brute_keep, par_batches, par_more, card,
     return out
 
 
+def sharded_states_equal(a, b) -> list:
+    """(shard, field) pairs where two lists of per-shard states differ,
+    compared where the tensors live (no host copy of a 2**18-slot
+    shard)."""
+    import torch
+    bad = []
+    for s, (x, y) in enumerate(zip(a, b)):
+        for f in x._fields:
+            u, v = getattr(x, f), getattr(y, f)
+            if not torch.equal(u, v.to(u.device)):
+                bad.append((s, f))
+    return bad
+
+
+def phase_sharded(pipe_batches, hnsw_keep, brute_matched, par_batches,
+                  svc_chunks, card, dev) -> dict:
+    """hnsw_sharded on the card: the main run at 4 x 2**18 slots over
+    phase 3's first SHARDED_BATCHES batches (docs/s, t_fused_step, a
+    profiled batch, recall and FP against brute at the matched tau beside
+    phase 3's hnsw, K1 once per batch and K2-K4 never), shards=1 against
+    phase 3's masks, cuda against cpu, the lifecycle and shard-layout
+    rules on the main run's index, and the service at shards=4."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.index import make_pipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.service import DedupService, ServiceConfig
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    batches = pipe_batches[:SHARDED_BATCHES]
+    cfg = FoldConfig(capacity=SHARD_CAPACITY)
+    torch.cuda.reset_peak_memory_stats()
+    pipe = make_pipeline("hnsw_sharded", cfg, shards=SHARDS, device=dev)
+    stats, keeps = [], []
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for tok, ln in batches:
+        keep, st = pipe.process_batch(tok, ln)
+        if keep.shape != (len(tok),) or st["n_overflow"] != 0:
+            fail(f"sharded: bad batch result {keep.shape} {st}")
+        stats.append(st)
+        keeps.append(keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    if launches.get("minhash", 0) != len(batches):
+        fail(f"sharded: K1 launched {launches.get('minhash', 0)} times in "
+             f"{len(batches)} batches: {launches}")
+    if any(launches.get(k, 0) for k in ("jaccard_cached", "jaccard_nocache",
+                                        "hamming")):
+        fail(f"sharded: a bitmap kernel ran on the fused step: {launches}")
+    keep = np.concatenate(keeps)
+    n_docs = len(keep)
+    counts = [int(st.count) for st in pipe.backend.states]
+    if sum(counts) != int(keep.sum()) or stats[-1]["count"] != sum(counts):
+        fail(f"sharded: shard counts {counts} disagree with {int(keep.sum())} "
+             f"admitted")
+    rec, fp = recall_fp(brute_matched[:n_docs], keep)
+    h_rec, h_fp = recall_fp(brute_matched[:n_docs], hnsw_keep[:n_docs])
+    steady = stats[1:]
+    out["main"] = dict(
+        shards=SHARDS, shard_capacity=SHARD_CAPACITY,
+        capacity=pipe.capacity, batches=len(batches),
+        batch_docs=len(batches[0][0]),
+        cut=f"first {len(batches)} of phase 3's {len(pipe_batches)} batches",
+        docs=n_docs, wall_s=wall, docs_per_s=n_docs / wall,
+        median_t_fused_step_s=statistics.median(s["t_fused_step"]
+                                                for s in steady),
+        median_t_signature_s=statistics.median(s["t_signature"]
+                                               for s in steady),
+        admitted=int(keep.sum()), shard_counts=counts,
+        brute_matched_admitted=int(brute_matched[:n_docs].sum()),
+        recall=rec, fp=fp, hnsw_recall=h_rec, hnsw_fp=h_fp,
+        agree_with_hnsw=float((keep == hnsw_keep[:n_docs]).mean()),
+        launches=launches,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("sharded " + json.dumps(out["main"]))
+    nxt = pipe_batches[SHARDED_BATCHES]
+    prof, _ = device_profile(lambda: pipe.process_batch(*nxt),
+                             "sharded_batch_trace")
+    out["profile"] = prof
+    log("sharded profile " + json.dumps(prof))
+
+    # shards=1 at 2**20: the fused step is the single-graph algorithm
+    one = make_pipeline("hnsw_sharded", FoldConfig(capacity=1 << 20),
+                        shards=1, device=dev)
+    n1 = SHARDED_ONE_BATCHES
+    keep1 = np.concatenate([one.process_batch(tok, ln)[0]
+                            for tok, ln in pipe_batches[:n1]])
+    if not np.array_equal(keep1, hnsw_keep[:len(keep1)]):
+        fail(f"sharded: shards=1 differs from phase 3 at "
+             f"{int((keep1 != hnsw_keep[:len(keep1)]).sum())} docs")
+    out["one_shard"] = {"batches": n1, "docs": len(keep1),
+                        "equal_to_phase3": True}
+    log(f"sharded: shards=1 at 2**20 equals phase 3's masks over its first "
+        f"{n1} batches ({len(keep1)} docs)")
+    del one
+
+    # cuda against cpu at 4 x SHARDED_PARITY_CAPACITY
+    pcfg = FoldConfig(capacity=SHARDED_PARITY_CAPACITY)
+    sides = [make_pipeline("hnsw_sharded", pcfg, shards=SHARDS, device=d)
+             for d in (dev, "cpu")]
+    t_side = [0.0, 0.0]
+    for i, (tok, ln) in enumerate(par_batches):
+        ks = []
+        for j, p in enumerate(sides):
+            t0 = time.perf_counter()
+            ks.append(p.process_batch(tok, ln)[0])
+            t_side[j] += time.perf_counter() - t0
+        if not np.array_equal(*ks):
+            fail(f"sharded parity: keep masks differ at batch {i}")
+        bad = sharded_states_equal(sides[0].backend.states,
+                                   sides[1].backend.states)
+        if bad:
+            fail(f"sharded parity: states differ at batch {i}: {bad}")
+    out["parity"] = {"batches": len(par_batches),
+                     "batch_docs": len(par_batches[0][0]),
+                     "shard_capacity": SHARDED_PARITY_CAPACITY,
+                     "admitted": sides[1].inserted, "cuda_s": t_side[0],
+                     "cpu_s": t_side[1]}
+    log("sharded parity: cuda equals cpu (keep masks, every per-shard "
+        "state) " + json.dumps(out["parity"]))
+    del sides
+
+    # lifecycle on the main run's index: delete a third of the admitted
+    # global ids, compact, reuse, save, restore at 4, 8 and 2 shards
+    be = pipe.backend
+    live = np.concatenate([
+        np.flatnonzero(st.node_level.cpu().numpy() >= 0) * SHARDS + s
+        for s, st in enumerate(be.states)])
+    kill = np.sort(live)[::3]
+    n_del = pipe.delete(kill)
+    if n_del != len(kill):
+        fail(f"sharded lifecycle: deleted {n_del} of {len(kill)}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = pipe.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    if info["reclaimed"] != n_del or pipe.dead_fraction != 0.0:
+        fail(f"sharded lifecycle: compact gave {info} for {n_del} deletes")
+    freed = [list(f) for f in be._free]
+    count_c = sum(int(st.count) for st in be.states)
+    more = pipe_batches[SHARDED_BATCHES + 1:SHARDED_BATCHES + 3]
+    kept = sum(int(pipe.process_batch(tok, ln)[0].sum()) for tok, ln in more)
+    reused = sum(int((st.node_level[torch.tensor(f, dtype=torch.long,
+                                                 device=st.count.device)]
+                      >= 0).sum()) if f else 0
+                 for st, f in zip(be.states, freed))
+    count_r = sum(int(st.count) for st in be.states)
+    if reused == 0 or count_r - count_c != kept - reused:
+        fail(f"sharded lifecycle: freed slots not reused (reused {reused}, "
+             f"admitted {kept}, count {count_c} -> {count_r})")
+    ckpt_dir = os.path.join(ROOT, "build", "ckpt_sharded")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.save(ckpt_dir, 1)
+    t_save = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(ckpt_dir, "step_00000001",
+                                          "arrays.msgpack"))
+    back = make_pipeline("hnsw_sharded", cfg, shards=SHARDS, device=dev)
+    t0 = time.perf_counter()
+    back.restore(ckpt_dir)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    bad = sharded_states_equal(back.backend.states, be.states)
+    if bad:
+        fail(f"sharded lifecycle: restore at {SHARDS} differs: {bad}")
+    del back
+    wide = make_pipeline("hnsw_sharded", cfg, shards=2 * SHARDS, device=dev)
+    wide.restore(ckpt_dir)
+    bad = sharded_states_equal(wide.backend.states[:SHARDS], be.states)
+    empty = all(int(st.count) == 0 and int((st.node_level >= 0).sum()) == 0
+                for st in wide.backend.states[SHARDS:])
+    if bad or not empty:
+        fail(f"sharded lifecycle: scale-out restore: {bad}, empty {empty}")
+    n0 = wide.inserted
+    wkeep = wide.process_batch(*pipe_batches[SHARDED_BATCHES + 3])[0]
+    grown = [int(st.count) for st in wide.backend.states[SHARDS:]]
+    if wkeep.sum() == 0 or wide.inserted != n0 + int(wkeep.sum()) \
+            or min(grown) == 0:
+        fail(f"sharded lifecycle: admission after scale-out: kept "
+             f"{int(wkeep.sum())}, new shards {grown}")
+    del wide
+    try:
+        make_pipeline("hnsw_sharded", cfg, shards=SHARDS // 2,
+                      device=dev).restore(ckpt_dir)
+        fail("sharded lifecycle: a restore onto fewer shards was not refused")
+    except ValueError as e:
+        if "cannot be merged" not in str(e):
+            raise
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["lifecycle"] = {"deleted": n_del, "reclaimed": info["reclaimed"],
+                        "free": info["free"], "compact_ms": t_compact * 1e3,
+                        "admitted_after": kept, "reused": reused,
+                        "checkpoint_bytes": nbytes, "save_ms": t_save * 1e3,
+                        "restore_ms": t_restore * 1e3,
+                        "scale_out_admitted": int(wkeep.sum()),
+                        "scale_out_new_shard_counts": grown,
+                        "scale_in": "refused"}
+    log("sharded lifecycle " + json.dumps(out["lifecycle"]))
+    del pipe, be
+    torch.cuda.empty_cache()
+
+    # the service at shards=4: its verdicts equal a process_batch loop
+    # over the valid rows of its own micro-batches
+    svc = DedupService(ServiceConfig(fold=cfg, shards=SHARDS))
+    if svc.pipeline.backend.name != "hnsw_sharded" or \
+            svc.pipeline.device.type != torch.device(dev).type:
+        fail(f"sharded service: built {svc.pipeline.backend.name} on "
+             f"{svc.pipeline.device}")
+    emitted = []
+    svc.outcome_hooks.append(lambda o: emitted.append(o.batch))
+    _lib.reset_launches()
+    verdicts, wall = run_service(svc, svc_chunks)
+    s_launches = dict(_lib.LAUNCHES)
+    require_launched("sharded service", s_launches, ["minhash"])
+    ref = make_pipeline("hnsw_sharded", cfg, shards=SHARDS, device=dev)
+    keep_ref, keep_svc = replay_micro_batches(ref, emitted, verdicts)
+    if not np.array_equal(keep_ref, keep_svc):
+        fail(f"sharded service: verdicts differ from the process_batch loop "
+             f"at {int((keep_ref != keep_svc).sum())} docs")
+    bad = sharded_states_equal(ref.backend.states, svc.pipeline.backend.states)
+    if bad:
+        fail(f"sharded service: index differs from the loop: {bad}")
+    n_svc = sum(len(t) for t, _ in svc_chunks)
+    out["service"] = {"docs": n_svc, "submits": len(svc_chunks),
+                      "micro_batches": len(emitted), "wall_s": wall,
+                      "docs_per_s": n_svc / wall,
+                      "admitted": int(keep_svc.sum()),
+                      "launches": s_launches}
+    log("sharded service " + json.dumps(out["service"]) + "; verdicts and "
+        "index equal a process_batch loop over the same micro-batches")
+    del svc, ref
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded: phase wall {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1139,6 +1412,9 @@ def main() -> None:
         DATASET_PRESETS["common_crawl"], seed=3))
     cl_chunks = ragged_chunks(cl_corpus, CLUSTER_DOCS, seed=11)
     probe = cl_corpus.next_batch(64)[:2]
+    svc_shard_chunks = ragged_chunks(SyntheticCorpus(dataclasses.replace(
+        DATASET_PRESETS["common_crawl"], seed=4)), SHARDED_SERVICE_DOCS,
+        seed=12)
 
     tok, ln = pipe_batches[0]
     padded = np.zeros((tok.shape[0], 384), np.uint32)
@@ -1168,15 +1444,17 @@ def main() -> None:
     if sim.shape != (bitmaps.shape[0],) * 2 or not torch.isfinite(sim).all():
         fail("ops.hamming gave a bad matrix")
 
-    _, brute_keep = phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
+    _, brute = phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
     phase_options(par_batches, dev)
     phase_lifecycle(pipe, more_batches, parity_pipes, par_more, dev)
     del pipe, parity_pipes
     svc = phase_service(svc_chunks, svc_fresh, depth_chunks, rot_chunks,
                         card, dev)
     clu = phase_cluster(cl_chunks, probe, card, dev)
-    base = phase_baselines(pipe_batches, brute_keep, par_batches, par_more,
-                           card, dev)
+    base = phase_baselines(pipe_batches, brute["tau_0.7"], par_batches,
+                           par_more, card, dev)
+    shard = phase_sharded(pipe_batches, hnsw_keep, brute["tau_matched"],
+                          par_batches, svc_shard_chunks, card, dev)
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -1197,6 +1475,10 @@ def main() -> None:
                 f"baselines/{tag}": run["launches"]["minhash"]
                 for tag, run in base["runs"].items()
                 if run["key"] != "prefix_filter"})
+        # hnsw_sharded: K1 once per batch; its in-batch matrix is the plain
+        # pairwise product, as in the reference, so K2-K4 never run there
+        r.setdefault("path_launches", {})["sharded"] = \
+            shard["main"]["launches"].get(r["name"], 0)
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

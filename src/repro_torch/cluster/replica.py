@@ -23,6 +23,13 @@ The replica's index lives on its service config's device (cuda unless
 "cpu" is asked for), which need not be the writer's. Snapshots are in
 the reference's byte layout, so a replica restores an epoch published by
 either package's writer.
+
+On the "hnsw_sharded" backend the replica's query path is the merged
+top-k search (global interleaved ids, identical to the writer's), and
+restoring a published epoch obeys the shard-layout rules: a replica needs
+at least as many shards as the snapshot (a scale-out restore pads empty
+shards; scale-in is refused because per-shard HNSW graphs cannot be
+merged).
 """
 from __future__ import annotations
 

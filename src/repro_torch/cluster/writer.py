@@ -28,7 +28,12 @@ no daemons — `submit`/`poll`/`flush` pump the machinery.
 
 The index organization underneath is pluggable (`ServiceConfig.backend`,
 any deletion-capable backend of the port for tenant budgets), and the
-index lives on `ServiceConfig.device`.
+index lives on `ServiceConfig.device`. On the sharded "hnsw_sharded"
+backend (`ServiceConfig(shards>1)`), published epochs are the backend's
+coordinated per-shard-stacked snapshots, and the slot ids in the tenancy
+ledger are its GLOBAL interleaved ids (`local * nshards + shard`), which
+the deletion contract routes to the owning shard: budget evictions work
+unchanged.
 """
 from __future__ import annotations
 

@@ -20,7 +20,8 @@ Whatever `search` returns, the masks built from it (and handed to
 `insert`, and returned in the StepResult) live on the same side
 (`_beside`); `host` brings any of them to numpy.
 
-Not ported: the `fused_step` hook, used only by `hnsw_sharded`.
+A backend whose whole ②-⑤ step is one call (`hnsw_sharded`) implements
+the protocol's `fused_step` hook, and `dedup_step` routes to it.
 """
 from __future__ import annotations
 
@@ -209,7 +210,21 @@ class DedupPipeline:
 
         valid: optional (B,) bool — False rows are never admitted.
         timers: a dict makes every stage block and record its wall-clock
-        time under t_in_batch / t_search / t_insert."""
+        time under t_in_batch / t_search / t_insert; a fused backend's
+        step is timed whole, under t_fused_step (the three split stages
+        then read 0)."""
+        fused = getattr(self.backend, "fused_step", None)
+        if fused is not None:
+            if timers is None:
+                return fused(sig, valid=valid)
+            timers.setdefault("t_in_batch", 0.0)
+            timers.setdefault("t_search", 0.0)
+            timers.setdefault("t_insert", 0.0)
+            t0 = time.perf_counter()
+            res = fused(sig, valid=valid)
+            _ready(res.keep)
+            timers["t_fused_step"] = time.perf_counter() - t0
+            return res
         order = self.backend.order
         if order == BATCH_FIRST:
             return self._step_batch_first(sig, valid, timers)

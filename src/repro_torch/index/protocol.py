@@ -88,8 +88,17 @@ class DedupBackend(Protocol):
       save(dir, step, async_write=False) / restore(dir, step=None) -> step
       stats_schema() / stats()
 
-    Optional hook (DedupPipeline checks hasattr):
+    Optional hooks (DedupPipeline checks hasattr):
 
+      fused_step(sig, valid=None) -> StepResult
+          Replace steps ②-⑤ with one call, for backends whose whole step
+          cannot be split (the sharded HNSW step: every shard's search
+          before any shard's insert). The pipeline does the Fig. 7 timing
+          around the call (recorded under t_fused_step); fused backends
+          never see the timers dict. A fused backend must STILL implement
+          `search`: the read-only query path (DedupPipeline.query, the
+          cluster read replicas) calls it directly; only batch_sim/insert
+          may refuse with a use-fused_step NotImplementedError.
       in_batch_keep(sig, eligible) -> (keep, batch_hit)
           Replace the sim-matrix greedy sweep with a backend-native one
           (e.g. lazy host-side set comparisons). Only consulted for

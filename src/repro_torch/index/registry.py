@@ -1,13 +1,14 @@
 """String-keyed backend registry (port of `repro/index/registry.py`).
 
 Factories take the shared `FoldConfig` plus keyword options; the
-built-in backends (`hnsw`, `hnsw_raw`, `brute`, `dpk`, `flat_lsh`,
-`prefix_filter`) register on first use. `hnsw_sharded`, the one key the
-reference has and the port does not yet, is refused by name.
+built-in backends (`hnsw`, `hnsw_sharded`, `hnsw_raw`, `brute`, `dpk`,
+`flat_lsh`, `prefix_filter`: the reference's keys) register on first use.
 
 The accepted option set is derived from the live factory signature
 (`accepted_opts`), as in the reference. The port's factories also take
-`device`, so their sets are the reference's plus that one key.
+`device`, so their sets are the reference's plus that one key (and
+`hnsw_sharded`'s lacks the reference's `mesh`: its shards share the one
+device).
 """
 from __future__ import annotations
 
@@ -30,7 +31,6 @@ Factory = Callable[..., "DedupBackend"]
 _REGISTRY: Dict[str, Factory] = {}
 # signature-derived accepted_opts, memoised per key; register() invalidates
 _OPTS_CACHE: Dict[str, Tuple[str, ...]] = {}
-_NOT_PORTED = ("hnsw_sharded",)
 
 
 def register(name: str, factory: Optional[Factory] = None) -> Any:
@@ -47,8 +47,6 @@ def _lookup(name: str) -> Factory:
     importlib.import_module("repro_torch.index.backends")
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"backend {name!r} is not ported yet")
     raise KeyError(f"unknown dedup backend {name!r}; "
                    f"registered: {', '.join(available())}")
 

@@ -21,6 +21,11 @@ last host read, and only that tail overlaps the next batch's host work
 materializes its own result) against `depth=2` is the measurement of that
 overlap (`chip_smoke.py` phase 8); nothing more is claimed here.
 
+A fused backend (`hnsw_sharded`) is served the same way: `dedup_step`
+routes to its `fused_step`, which pads each micro-batch to a multiple of
+its shard count with valid=False rows and returns masks for the
+micro-batch's own rows.
+
 Sequential-mode equivalence: the executor runs the exact same stage
 functions against the same evolving index state in the same order, so its
 keep-verdicts are bit-identical to a `process_batch` loop over the same

@@ -12,19 +12,23 @@ the re-allocations amortize to O(log corpus).
 Snapshots. Rolling rotation on top of train/checkpoint's atomic-commit
 layout: every `snapshot_every` batches the pipeline state is saved and only
 the newest `max_snapshots` committed steps are kept — restart cost is
-bounded and disk does not grow with corpus lifetime.
+bounded and disk does not grow with corpus lifetime. An asynchronous
+snapshot's own step is left out of the listing the rotation works on,
+whether or not its background write has committed yet, so the rotation
+always lands on `max_snapshots` committed steps.
 
-The reference re-exports its sharded backend here; the port has none yet.
+The sharded backend is re-exported here, as in the reference.
 """
 from __future__ import annotations
 
 import os
 import shutil
 
+from repro_torch.index.backends.sharded import ShardedDedupBackend
 from repro_torch.index.pipeline import DedupPipeline
 from repro_torch.train import checkpoint as ckpt
 
-__all__ = ["IndexManager"]
+__all__ = ["IndexManager", "ShardedDedupBackend"]
 
 
 class IndexManager:
@@ -121,10 +125,13 @@ class IndexManager:
         self.pipe.save(self.snapshot_dir, self._snap_step,
                        async_write=not sync)
         self.snapshots_taken += 1
-        # rotate committed steps; an in-flight async write is not listed
-        # yet, so keep one fewer committed step to land on max_snapshots
-        keep = self.max_snapshots - (0 if sync else 1)
-        steps = ckpt.list_steps(self.snapshot_dir)
+        # rotate the OTHER committed steps down to max_snapshots - 1: this
+        # step is left out of the listing whether or not an async write of
+        # it has committed already (a write that commits before the listing
+        # would otherwise be counted twice, once listed and once in flight)
+        keep = self.max_snapshots - 1
+        steps = [s for s in ckpt.list_steps(self.snapshot_dir)
+                 if s != self._snap_step]
         for old in (steps[:-keep] if keep > 0 else steps):
             shutil.rmtree(os.path.join(self.snapshot_dir,
                                        f"step_{old:08d}"))

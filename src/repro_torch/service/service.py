@@ -9,10 +9,10 @@ Composition of the serving subsystem:
                         IndexManager (growth + snapshots) ┘
 
 The index organization is pluggable: `ServiceConfig.backend` names any
-`repro_torch.index` registry key ("hnsw" — FOLD, the default — "hnsw_raw",
-"brute", "dpk", "flat_lsh", "prefix_filter", or a third-party
-registration; "hnsw_sharded" is refused by name until it is ported), and
-the service composes the generic DedupPipeline for it. It runs on `ServiceConfig.device`: cuda unless
+`repro_torch.index` registry key ("hnsw" — FOLD, the default —
+"hnsw_sharded", "hnsw_raw", "brute", "dpk", "flat_lsh", "prefix_filter",
+or a third-party registration), and the service composes the generic
+DedupPipeline for it. It runs on `ServiceConfig.device`: cuda unless
 "cpu" is asked for, and with no card a cuda service raises.
 Every backend gets micro-batching, pipelined execution, growth watermarks,
 and snapshot rotation for free; backends that declare
@@ -83,8 +83,8 @@ class ServiceConfig:
     ttl_steps: int = 0
     max_live_docs: int | None = None
     compact_watermark: float = 0.25
-    # distribution: >1 selects the "hnsw_sharded" backend, which the port
-    # refuses by name until it is ported
+    # distribution: >1 selects the "hnsw_sharded" backend (fold.capacity
+    # is then per shard; every shard lives on `device`)
     shards: int = 1
     # bounded admission: reject submits (Backpressure, with a retry-after
     # hint) once pending + in-flight docs would exceed this bound, instead

@@ -1,8 +1,10 @@
 """The DedupBackend contract battery of tests/test_contract.py, run on the
 PyTorch port's registry (`repro_torch.index.available()`: "brute", "dpk",
-"flat_lsh", "hnsw", "hnsw_raw" and "prefix_filter", every reference key
-but "hnsw_sharded") on the CPU, driven by the capability flags each
-backend declares. The port's backends take `device="cpu"`; the battery is
+"flat_lsh", "hnsw", "hnsw_raw", "hnsw_sharded" and "prefix_filter", every
+reference key) on the CPU, driven by the capability flags each backend
+declares, and once more on "hnsw_sharded" at 4 shards (the port stacks
+its shards on one device; the reference's battery runs that key at its
+device count). The port's backends take `device="cpu"`; the battery is
 otherwise the reference's, assertion for assertion."""
 import dataclasses
 
@@ -21,13 +23,16 @@ torch.set_num_threads(1)
 
 
 def make_pipeline(key, cfg):
-    return _make_pipeline(key, cfg, device="cpu")
+    """`key`, or `key@N` for N shards."""
+    key, _, shards = key.partition("@")
+    opts = {"shards": int(shards)} if shards else {}
+    return _make_pipeline(key, cfg, device="cpu", **opts)
 
 TAU = 0.7
 CFG = FoldConfig(capacity=256, M=8, M0=16, ef_construction=32, ef_search=32,
                  tau=TAU, threshold_space="minhash")
 
-KEYS = sorted(available())
+KEYS = sorted(available()) + ["hnsw_sharded@4"]
 
 # hnsw_raw verifies in the low-recall minhash_jaccard space — a
 # deliberately imperfect paper baseline. Its replay/reinsert guarantees

@@ -417,3 +417,45 @@ def test_cuda_replica_matches_cpu_replica(cuda, tmp_path):
     assert w.stats()["cluster"]["tenants"]["capped"]["evicted"] > 0
     assert not _same_state(replicas[0].pipeline.backend.state,
                            replicas[1].pipeline.backend.state)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 4])
+def test_cuda_sharded_matches_cpu(cuda, tmp_path, shards):
+    """hnsw_sharded on the card equals it on the CPU: keep masks, every
+    per-shard state, the merged query's ids and sims, delete by global id,
+    compact and free-slot reuse, and the snapshot bytes; its step ① ran
+    K1 once per batch."""
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.index import make_pipeline
+    cfg = FoldConfig(capacity=256, M=8, M0=16, ef_construction=32,
+                     ef_search=32)
+    pipes = [make_pipeline("hnsw_sharded", cfg, shards=shards, device=d)  # foldlint: disable=F131 (the port's factories add device)
+             for d in (cuda, "cpu")]
+    for p in pipes:
+        p.backend.track_slots = True
+    batches = _cc_batches(4, 62, seed=5)
+    _lib.reset_launches()
+    for i, (tok, ln) in enumerate(batches):
+        keeps = [p.process_batch(tok, ln)[0] for p in pipes]
+        assert np.array_equal(*keeps), i
+        for a, b in zip(*(p.backend.states for p in pipes)):
+            assert not _same_state(a, b), i
+        if i == 1:
+            slots = [np.concatenate(p.backend.pop_slot_log()) for p in pipes]
+            assert np.array_equal(*slots)
+            n = [p.delete(slots[0][::3]) for p in pipes]
+            assert n[0] == n[1] == len(slots[0][::3])
+            out = [p.compact() for p in pipes]
+            assert out[0]["reclaimed"] == out[1]["reclaimed"] > 0
+            assert pipes[0].backend._free == pipes[1].backend._free
+    assert _lib.LAUNCHES["minhash"] == len(batches)
+    res = [p.query(*batches[0]) for p in pipes]
+    assert np.array_equal(res[0].ids, res[1].ids)
+    assert np.array_equal(res[0].sims.view(np.uint32),
+                          res[1].sims.view(np.uint32))
+    for p, d in zip(pipes, ("cuda", "cpu")):
+        p.save(str(tmp_path / d), 1)
+    name = "step_00000001/arrays.msgpack"
+    assert (tmp_path / "cuda" / name).read_bytes() == \
+        (tmp_path / "cpu" / name).read_bytes()

@@ -1,8 +1,9 @@
 """The port stands alone: `repro_torch` and chip_smoke.py import neither
 jax, the JAX package `repro` nor msgpack, at run time or anywhere in their
 source, and the port saves and restores its checkpoints (every ported
-backend, the baselines through `repro_torch.baselines`), and serves a
-service with snapshots, where none of the three can be imported."""
+backend, `hnsw_sharded` at 4 shards and its scale-out restore, the
+baselines through `repro_torch.baselines`), and serves a service with
+snapshots, sharded too, where none of the three can be imported."""
 import ast
 import os
 import subprocess
@@ -24,7 +25,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.service, repro_torch.cluster, "
             "repro_torch.data.ingest, repro_torch.baselines, "
             "repro_torch.index.backends.lsh, "
-            "repro_torch.index.backends.prefix, repro_torch.core.minhash; "
+            "repro_torch.index.backends.prefix, repro_torch.core.minhash, "
+            "repro_torch.core.sharded, repro_torch.index.backends.sharded; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -75,6 +77,16 @@ for key in ("hnsw", "brute"):
     assert back.restore(sys.argv[1] + "/" + key) == 1
     assert back.inserted == pipe.inserted
     assert (back.process_batch(*nxt)[0] == pipe.process_batch(*nxt)[0]).all()
+cfg = FoldConfig(capacity=64, M=8, M0=16, ef_construction=32, ef_search=32)
+pipe = make_pipeline("hnsw_sharded", cfg, shards=4, device="cpu")
+pipe.process_batch(tokens, lengths)
+pipe.delete(np.arange(0, 32, 4))
+pipe.save(sys.argv[1] + "/hnsw_sharded", 1)
+for shards in (8, 4):
+    back = make_pipeline("hnsw_sharded", cfg, shards=shards, device="cpu")
+    assert back.restore(sys.argv[1] + "/hnsw_sharded") == 1
+    assert back.inserted == pipe.inserted
+assert (back.process_batch(*nxt)[0] == pipe.process_batch(*nxt)[0]).all()
 import repro_torch.baselines as tb
 for key, make_pipe in (
         ("hnsw_raw", lambda: tb.RawHNSWPipeline(
@@ -100,6 +112,16 @@ ticket = svc.submit(tokens[:20], lengths[:20])
 svc.flush()
 assert len(svc.results(ticket)) == 20
 assert svc.index_manager.committed_steps() == (1, 2)
+svc = DedupService(ServiceConfig(
+    fold=FoldConfig(capacity=64, M=8, M0=16, ef_construction=32,
+                    ef_search=32), shards=2, max_batch=16, max_wait_ms=0.0,
+    snapshot_dir=sys.argv[1] + "/sharded_service", snapshot_every=1,
+    device="cpu"))
+ticket = svc.submit(tokens[:20], lengths[:20])
+svc.flush()
+assert len(svc.results(ticket)) == 20
+assert svc.pipeline.backend.name == "hnsw_sharded"
+assert svc.index_manager.committed_steps() == (1, 2)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(bad)
@@ -114,3 +136,5 @@ def test_checkpoints_round_trip_without_jax_or_msgpack(tmp_path):
     assert out.returncode == 0, out.stdout + out.stderr
     assert (tmp_path / "hnsw" / "step_00000001" / "arrays.msgpack").exists()
     assert (tmp_path / "service" / "step_00000002" / "MANIFEST.json").exists()
+    assert (tmp_path / "hnsw_sharded" / "step_00000001"
+            / "arrays.msgpack").exists()

@@ -81,8 +81,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_registry_serves_hnsw_and_refuses_unported_keys():
+    """Every reference key is ported now (`hnsw_sharded` last); an unknown
+    key still raises."""
     assert available() == ("brute", "dpk", "flat_lsh", "hnsw", "hnsw_raw",
-                           "prefix_filter")
+                           "hnsw_sharded", "prefix_filter")
     # the port's factories take `device`; foldlint's factory table is keyed
     # by registry key and holds the reference's factories
     be = make("hnsw", FoldConfig(**SMALL), device="cpu")  # foldlint: disable=F131
@@ -93,8 +95,8 @@ def test_registry_serves_hnsw_and_refuses_unported_keys():
     for key in ("hnsw_raw", "dpk", "flat_lsh", "prefix_filter"):
         be = make(key, FoldConfig(**SMALL), device="cpu")  # foldlint: disable=F131
         assert be.name == key and be.capacity == 1024
-    with pytest.raises(NotImplementedError, match="hnsw_sharded"):
-        make("hnsw_sharded", FoldConfig(**SMALL), device="cpu")
+    sh = make("hnsw_sharded", FoldConfig(**SMALL), shards=2, device="cpu")  # foldlint: disable=F131
+    assert sh.name == "hnsw_sharded" and sh.capacity == 2 * 1024
     with pytest.raises(KeyError):
         make("no_such_backend")
 

@@ -331,9 +331,69 @@ def test_pump_requeues_batches_on_refusal_as_jax():
 
 
 # -------------------------------------------------------------- snapshots
-def test_snapshot_rotation_roundtrip_as_jax(tmp_path):
+def _jax_rotation_as_port(monkeypatch):
+    """Keep the JAX IndexManager's own in-flight async step out of the
+    listing its rotation reads, as the port's IndexManager does. The
+    reference counts a background write that commits before the listing
+    both as listed and as in flight, and rotates one step too many: a
+    race that shows under load. The patch lives for one test; the JAX
+    package itself is unchanged."""
+    import repro.train.checkpoint as jckpt
+    inflight: set = set()
+    save_async, wait_pending = jckpt.save_async, jckpt.wait_pending
+    list_steps = jckpt.list_steps
+
+    def save_async_noted(ckpt_dir, step, tree, **kw):
+        inflight.add((os.path.abspath(ckpt_dir), step))
+        return save_async(ckpt_dir, step, tree, **kw)
+
+    def wait_pending_cleared():
+        wait_pending()
+        inflight.clear()
+
+    def list_committed(ckpt_dir):
+        return [s for s in list_steps(ckpt_dir)
+                if (os.path.abspath(ckpt_dir), s) not in inflight]
+
+    monkeypatch.setattr(jckpt, "save_async", save_async_noted)
+    monkeypatch.setattr(jckpt, "wait_pending", wait_pending_cleared)
+    monkeypatch.setattr(jckpt, "list_steps", list_committed)
+
+
+@pytest.mark.parametrize("key,max_snapshots", [
+    ("hnsw", 1), ("hnsw", 2), ("hnsw", 3), ("hnsw_sharded", 2)])
+def test_rotation_keeps_max_snapshots_when_async_write_commits_first(
+        tmp_path, monkeypatch, key, max_snapshots):
+    """An async snapshot whose write commits before the rotation lists the
+    directory (forced here: save_async writes synchronously) is not
+    counted twice: the port lands on exactly max_snapshots committed
+    steps after every batch, the newest ones."""
+    from repro_torch.index import make_pipeline
+    from repro_torch.train import checkpoint as ckpt
+    real_save = ckpt.save
+
+    def save_now(ckpt_dir, step, tree, *, extra=None):
+        real_save(ckpt_dir, step, tree, extra=extra)
+
+    monkeypatch.setattr(ckpt, "save_async", save_now)
+    opts = {"shards": 2} if key == "hnsw_sharded" else {}
+    pipe = make_pipeline(key, FoldConfig(**SMALL), device="cpu", **opts)
+    mgr = IndexManager(pipe, snapshot_dir=str(tmp_path), snapshot_every=1,
+                       max_snapshots=max_snapshots)
+    src = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
+    for i in range(1, 5):
+        pipe.process_batch(*src.next_batch(16)[:2])
+        mgr.after_batch()
+        want = tuple(range(max(1, i - max_snapshots + 1), i + 1))
+        assert mgr.committed_steps() == want, i
+    assert sorted(os.listdir(tmp_path)) == [
+        f"step_{s:08d}" for s in range(5 - max_snapshots, 5)]
+
+
+def test_snapshot_rotation_roundtrip_as_jax(tmp_path, monkeypatch):
     """Rotation keeps the same committed steps, and each package restores
     its latest step into a fresh pipeline that replays as the donor."""
+    _jax_rotation_as_port(monkeypatch)
     src = SyntheticCorpus(DATASET_PRESETS["common_crawl"])
     b1, b2, b3 = (src.next_batch(96)[:2] for _ in range(3))
     for tag, (pipe, Mgr), fresh in (
@@ -361,11 +421,12 @@ def test_snapshot_rotation_roundtrip_as_jax(tmp_path):
                 (tmp_path / "jax" / step / name).read_bytes(), (step, name)
 
 
-def test_service_snapshots_byte_identical_to_jax(tmp_path):
+def test_service_snapshots_byte_identical_to_jax(tmp_path, monkeypatch):
     """The torch service and the JAX service rotate snapshots over the same
     stream (async writes, max_snapshots=2): the same steps commit, and
     each committed step's arrays.msgpack and MANIFEST.json are the same
     bytes; a restarted manager resumes past them in both."""
+    _jax_rotation_as_port(monkeypatch)
     dirs = {tag: str(tmp_path / tag) for tag in ("jax", "port")}
     svc = dict(max_batch=32, max_wait_ms=0.0, batch_buckets=(32,),
                stage_timer_every=0, snapshot_every=2, max_snapshots=2)
@@ -512,14 +573,20 @@ def test_service_single_doc_requests_match_jax():
 
 def test_service_config_device_and_sharding_rules():
     """ServiceConfig.device=None means cuda (raises without a card);
-    shards > 1 promotes to hnsw_sharded, which the port refuses by name;
+    shards > 1 promotes to hnsw_sharded, every shard on the service's
+    device; any other backend with shards > 1 is refused;
     compiled_programs is kept, empty."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="found no GPU"):
             DedupService(ServiceConfig(fold=FoldConfig(**SMALL)))
-    with pytest.raises(NotImplementedError, match="hnsw_sharded"):
-        DedupService(ServiceConfig(fold=FoldConfig(**SMALL), shards=2,
-                                   device="cpu"))  # foldlint: disable=F141 (the port's ServiceConfig adds device)
+        with pytest.raises(RuntimeError, match="found no GPU"):
+            DedupService(ServiceConfig(fold=FoldConfig(**SMALL), shards=2))
+    sharded = DedupService(ServiceConfig(fold=FoldConfig(**SMALL), shards=2,
+                                         device="cpu"))  # foldlint: disable=F141 (the port's ServiceConfig adds device)
+    be = sharded.pipeline.backend
+    assert be.name == "hnsw_sharded" and be.nshards == 2
+    assert be.capacity == 2 * SMALL["capacity"]
+    assert all(st.vectors.device.type == "cpu" for st in be.states)
     with pytest.raises(ValueError, match="requires the 'hnsw_sharded'"):
         DedupService(ServiceConfig(fold=FoldConfig(**SMALL), shards=2,
                                    backend="brute", device="cpu"))  # foldlint: disable=F141 (the port's ServiceConfig adds device)
