@@ -57,6 +57,18 @@ Phases (any failure exits non-zero and prints no result):
      delete a third, compact, reuse, save, restore at 4 (equal), at 8
      (scale-out) and at 2 (refused); DedupService(shards=4) equals a
      process_batch loop over its micro-batches
+ 12. programs — repro_torch.analysis: (a) every registered program spec
+     run once on the card and once on the CPU in this process: equal
+     interface, argument/output bytes, aliasing, float64 outputs,
+     data-dependent op counts and outputs, and no budget violation on the
+     card; per spec the card's syncs (sync-debug mode), kernel launches,
+     temp bytes and wall ms; K1-K4 never launched. (b) the main path's own
+     programs at production geometry: on a copy of phase 3's 2**20-slot
+     state, hnsw_search and hnsw_insert_batch of phase 3's last batch again
+     (what its profiled batch ran; nothing admitted) and of a fresh 512-doc
+     batch, then hnsw_search at each service batch bucket: syncs, launches,
+     device operations and temp bytes per program; the replay's device
+     operations beside phase 3's profiled batch
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -111,6 +123,8 @@ SHARDED_BATCHES = 16
 SHARDED_ONE_BATCHES = 8
 SHARDED_PARITY_CAPACITY = 4096   # per shard, cuda against cpu
 SHARDED_SERVICE_DOCS = 2048
+# phase 12 (b): a batch of phase 3's width on a copy of its final state
+PROGRAM_BATCH = 512
 
 # published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -453,6 +467,7 @@ def phase_pipeline(batches, card: str, dev):
     prof, _ = device_profile(lambda: pipe.process_batch(*batches[-1]),
                              "batch_trace")
     log("profile " + json.dumps(prof))
+    res["profile"] = prof
     return res, launches, pipe, np.concatenate(keeps)
 
 
@@ -1143,6 +1158,144 @@ def sharded_states_equal(a, b) -> list:
     return bad
 
 
+def _leaves_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.analysis.analyze import tensor_leaves
+    x, y = tensor_leaves(a), tensor_leaves(b)
+    return len(x) == len(y) and all(
+        u.shape == v.shape and u.dtype == v.dtype
+        and torch.equal(u.cpu(), v.cpu()) for u, v in zip(x, y))
+
+
+def phase_programs(main_state, replay_batch, fresh_batch, batch_profile,
+                   card: str, dev) -> dict:
+    """(a) every program spec on the card and on the CPU; (b) the main
+    path's programs at production geometry on `main_state`, a copy of
+    phase 3's final state (see the module docstring)."""
+    import torch
+
+    from repro_torch.analysis import (analyze_family, analyze_program,
+                                      default_specs, measure_run,
+                                      spec_families)
+    from repro_torch.core.dedup import (FoldConfig, FoldPipeline, bitmap_tau,
+                                        in_batch_dedup)
+    from repro_torch.core.hnsw import (hnsw_insert_batch, hnsw_search,
+                                       sample_levels)
+    from repro_torch.kernels import _lib
+    from repro_torch.service.batcher import default_batch_buckets
+    t_phase = time.perf_counter()
+    out = {"card": card, "specs": {}, "main": {}}
+
+    # (a) every spec, cuda and cpu in one process
+    specs = default_specs()
+    reports = {}
+    _lib.reset_launches()
+    for spec in specs:
+        cpu = analyze_program(spec, "cpu")
+        gpu = analyze_program(spec, dev)
+        if not gpu.measure.launches:
+            # a short program's trace has come back without its device
+            # events (brute/chunk_best, twice on an H100 under torch 2.11):
+            # run it once more on fresh inputs; still none reads "not
+            # measured" (launches 0)
+            log(f"programs {spec.name}: the trace held no kernel event; "
+                f"running it again")
+            gpu = analyze_program(spec, dev)
+        reports[spec.name] = gpu
+        fc, fg = cpu.fingerprint, gpu.fingerprint
+        for key in ("in_avals", "out_avals", "aliased", "f64",
+                    "data_dependent_ops"):
+            if fc[key] != fg[key]:
+                fail(f"programs: {spec.name} {key} differs, cuda "
+                     f"{fg[key]} vs cpu {fc[key]}")
+        for key in ("argument_bytes", "output_bytes"):
+            if fc["memory"][key] != fg["memory"][key]:
+                fail(f"programs: {spec.name} {key} differs, cuda "
+                     f"{fg['memory'][key]} vs cpu {fc['memory'][key]}")
+        if not _leaves_equal(gpu.measure.outputs, cpu.measure.outputs):
+            fail(f"programs: {spec.name} outputs differ between cuda and cpu")
+        if gpu.violations:
+            fail("programs: violations on the card: " + "; ".join(
+                v.render() for v in gpu.violations))
+        m = gpu.measure
+        row = dict(card_syncs=m.syncs,
+                   data_dependent_ops=m.data_dependent,
+                   budget_card_syncs=spec.budget.card_syncs,
+                   budget_host_syncs=spec.budget.host_syncs,
+                   launches=m.launches, device_ops=m.device_ops,
+                   temp_bytes=m.temp_bytes,
+                   budget_temp_bytes=spec.budget.temp_bytes,
+                   gather=fg["gather"], scatter=fg["scatter"],
+                   aliased=fg["aliased"], alias_expect=spec.alias_expect,
+                   argument_bytes=fg["memory"]["argument_bytes"],
+                   output_bytes=fg["memory"]["output_bytes"],
+                   ops_cuda=sum(fg["ops"].values()),
+                   ops_cpu=sum(fc["ops"].values()),
+                   wall_ms=m.wall_ms, cpu_wall_ms=cpu.measure.wall_ms)
+        out["specs"][spec.name] = row
+        log(f"programs {spec.name} " + json.dumps(row))
+    for fam, fspecs in spec_families(specs).items():
+        bad = analyze_family(fam, fspecs, reports)
+        if bad:
+            fail("programs: " + "; ".join(v.render() for v in bad))
+    out["launches"] = dict(_lib.LAUNCHES)
+    if any(out["launches"].values()):
+        fail(f"programs: the analyzed programs launched a kernel: "
+             f"{out['launches']}")
+    log(f"programs: {len(specs)} specs equal on cuda and cpu (interface, "
+        f"bytes, aliasing, f64, data-dependent ops, outputs), no violation "
+        f"on the card, K1-K4 not launched")
+
+    # (b) production geometry: phase 3's state. First phase 3's last batch
+    # again (what its profiled batch ran: every doc is in the index, so
+    # nothing is admitted), then a fresh batch, each through steps ③ and ⑤
+    # as the pipeline calls them, then the service buckets
+    cfg = FoldConfig(capacity=1 << 20)
+    hcfg = cfg.hnsw()
+    tau = bitmap_tau(cfg)
+    sigs = FoldPipeline(FoldConfig(capacity=PROGRAM_BATCH), device=dev)
+
+    def record(tag, fn, *args, **kwargs):
+        m = measure_run(fn, *args, device=dev, **kwargs)
+        row = dict(card_syncs=m.syncs, data_dependent_ops=m.data_dependent,
+                   launches=m.launches, device_ops=m.device_ops,
+                   temp_bytes=m.temp_bytes, wall_ms=m.wall_ms,
+                   gather=m.count(("gather", "index", "index_select",
+                                   "take")))
+        out["main"][tag] = row
+        log(f"programs main {tag} " + json.dumps(row))
+        return m.outputs
+
+    for i, (tag, batch) in enumerate((("replay", replay_batch),
+                                      ("fresh", fresh_batch))):
+        sig = sigs.signatures(*batch)
+        ids, sims = record(f"{tag}/search", hnsw_search, hcfg, main_state,
+                           sig.bitmaps, k=cfg.k)
+        keep = in_batch_dedup(sig.bitmaps, sig.pcs, tau) & \
+            ~(sims >= tau).any(-1)
+        levels = torch.from_numpy(sample_levels(
+            PROGRAM_BATCH, hcfg, seed=PIPE_BATCHES + i + cfg.seed + 1))
+        main_state, n = record(f"{tag}/insert", hnsw_insert_batch, hcfg,
+                               main_state, sig.bitmaps, sig.pcs,
+                               levels.to(dev), keep,
+                               seed_ids=ids.to(torch.int32), free_slots=None)
+        out[f"{tag}_admitted"] = int(n)
+    for B in default_batch_buckets(128):
+        record(f"service/search_b{B:03d}", hnsw_search, hcfg, main_state,
+               sig.bitmaps[:B], k=cfg.k)
+    both = sum(out["main"][k]["device_ops"]
+               for k in ("replay/search", "replay/insert"))
+    out["replay_vs_batch"] = dict(
+        search_insert_device_ops=both,
+        batch_device_ops=batch_profile["device_ops"],
+        rest=batch_profile["device_ops"] - both)
+    log("programs replay_vs_batch " + json.dumps(out["replay_vs_batch"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"programs: phase wall {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def phase_sharded(pipe_batches, hnsw_keep, brute_matched, par_batches,
                   svc_chunks, card, dev) -> dict:
     """hnsw_sharded on the card: the main run at 4 x 2**18 slots over
@@ -1444,6 +1597,10 @@ def main() -> None:
     if sim.shape != (bitmaps.shape[0],) * 2 or not torch.isfinite(sim).all():
         fail("ops.hamming gave a bad matrix")
 
+    # phase 12 (b) runs on a copy of phase 3's final state
+    from repro_torch.core.hnsw import HNSWState
+    main_state = HNSWState(*(t.clone() for t in pipe.state))
+
     _, brute = phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
     phase_options(par_batches, dev)
     phase_lifecycle(pipe, more_batches, parity_pipes, par_more, dev)
@@ -1455,6 +1612,9 @@ def main() -> None:
                            par_more, card, dev)
     shard = phase_sharded(pipe_batches, hnsw_keep, brute["tau_matched"],
                           par_batches, svc_shard_chunks, card, dev)
+    prog = phase_programs(main_state, pipe_batches[-1], more_batches[-1],
+                          res["profile"], card, dev)
+    del main_state
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -1479,6 +1639,8 @@ def main() -> None:
         # pairwise product, as in the reference, so K2-K4 never run there
         r.setdefault("path_launches", {})["sharded"] = \
             shard["main"]["launches"].get(r["name"], 0)
+        # the analyzed hot-path programs (phase 12) reach no kernel
+        r["path_launches"]["programs"] = prog["launches"].get(r["name"], 0)
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

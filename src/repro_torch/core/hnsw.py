@@ -35,6 +35,7 @@ either way).
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -49,7 +50,8 @@ from repro_torch.kernels.ref import hamming_from_px
 __all__ = ["HNSWConfig", "HNSWState", "hnsw_init", "hnsw_grow",
            "hnsw_insert_batch", "hnsw_search", "hnsw_delete", "hnsw_compact",
            "needs_repair", "sample_levels", "auto_query_chunk", "visited_nbytes",
-           "state_from_numpy", "state_to_numpy"]
+           "state_from_numpy", "state_to_numpy", "abstract_state",
+           "program_cache_sizes"]
 
 _INF = float("inf")
 
@@ -113,7 +115,19 @@ def _scalar(v: int, device) -> torch.Tensor:
 
 def hnsw_init(cfg: HNSWConfig, device: str | torch.device | None = None
               ) -> HNSWState:
-    dev = resolve_device(device)
+    return _empty_state(cfg, resolve_device(device))
+
+
+def abstract_state(cfg: HNSWConfig) -> HNSWState:
+    """HNSWState on the `meta` device: shapes and dtypes, no allocation.
+
+    The one place the state's geometry is derived (the reference's
+    `jax.eval_shape(hnsw_init)`); repro_torch.analysis reads its interface
+    from it, so a field added to HNSWState is covered there too."""
+    return _empty_state(cfg, torch.device("meta"))
+
+
+def _empty_state(cfg: HNSWConfig, dev: torch.device) -> HNSWState:
     cap, W = cfg.capacity, cfg.words
     i32 = torch.int32
     return HNSWState(
@@ -127,6 +141,57 @@ def hnsw_init(cfg: HNSWConfig, device: str | torch.device | None = None
         top_level=_scalar(-1, dev),
         count=_scalar(0, dev),
     )
+
+
+# ------------------------------------------------------- program signatures
+# JAX compiles one program per distinct call signature of a jitted entry
+# point and keeps it in a process-wide cache; `program_cache_sizes` reports
+# those caches' sizes. Eager PyTorch compiles nothing, so each entry point
+# below records the signatures it has been called with instead: the shape,
+# dtype and device of every tensor argument and the value of every static
+# one (cfg, k, ef, query_chunk, None-ness of an optional tensor), keyed as
+# passed, positional or keyword. Like JAX's caches, the sets are per
+# process; `clear_cache()` on an entry point empties its set, as on a
+# jitted function. Recording reads no tensor data, so it costs no sync.
+def _signature(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, np.ndarray):
+        return ("ndarray", x.shape, x.dtype.str)
+    if isinstance(x, (tuple, list)):          # HNSWState, HNSWConfig, ...
+        return (type(x).__name__,) + tuple(_signature(v) for v in x)
+    return x
+
+
+def _program(fn):
+    """Record each call's signature before running `fn`; the wrapper has
+    `_cache_size()` and `clear_cache()`, as a jitted function does, and
+    `__wrapped__` runs `fn` unrecorded (the calls inside the sharded step,
+    which the reference traces into its own program)."""
+    seen: set = set()
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        seen.add((_signature(args),
+                  tuple(sorted((k, _signature(v)) for k, v in kwargs.items()))))
+        return fn(*args, **kwargs)
+
+    entry._cache_size = seen.__len__
+    entry.clear_cache = seen.clear
+    return entry
+
+
+def program_cache_sizes() -> dict[str, int]:
+    """Distinct call signatures seen by each hot-path entry point in this
+    process: what the reference's jit caches count. The service reports it
+    in stats(); each entry should grow by exactly |batch buckets| per index
+    geometry, ever."""
+    return {
+        "search": hnsw_search._cache_size(),
+        "insert": hnsw_insert_batch._cache_size(),
+        "delete": hnsw_delete._cache_size(),
+        "compact": hnsw_compact._cache_size(),
+    }
 
 
 def hnsw_grow(cfg: HNSWConfig, state: HNSWState,
@@ -409,6 +474,7 @@ def _chunked_map(fn, operands, chunk: int):
 
 
 # ------------------------------------------------------------------- search
+@_program
 def hnsw_search(cfg: HNSWConfig, state: HNSWState, queries: torch.Tensor,
                 k: int, ef: int | None = None, query_chunk: int | None = None):
     """Batched kNN search. queries (Q, W) int32 bits on the state's device.
@@ -727,6 +793,7 @@ def _commit_batch(cfg: HNSWConfig, state: HNSWState, levels, admit, slots,
     return state._replace(entry=_scalar(entry, dev), top_level=_scalar(top, dev))
 
 
+@_program
 def hnsw_insert_batch(cfg: HNSWConfig, state: HNSWState, vecs: torch.Tensor,
                       pcs: torch.Tensor, levels, mask,
                       seed_ids: torch.Tensor | None = None,
@@ -795,6 +862,7 @@ def hnsw_insert_batch(cfg: HNSWConfig, state: HNSWState, vecs: torch.Tensor,
 
 
 # ------------------------------------------------------- delete & compact
+@_program
 def hnsw_delete(cfg: HNSWConfig, state: HNSWState, ids
                 ) -> tuple[HNSWState, torch.Tensor]:
     """Tombstone node ids (D,), -1 padded; out-of-range, unused and
@@ -852,6 +920,7 @@ def _repair_rows(cfg: HNSWConfig, state: HNSWState, live, lev: int,
     return _closest_rows(cfg, c_ids, c_d, m_l)
 
 
+@_program
 def hnsw_compact(cfg: HNSWConfig, state: HNSWState
                  ) -> tuple[HNSWState, torch.Tensor]:
     """Online compaction: rebuild every live row that references a

@@ -39,9 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.bitmap import chunked_pairwise_bitmap_jaccard
-from repro_torch.core.hnsw import (HNSWConfig, HNSWState, hnsw_compact,
-                                   hnsw_delete, hnsw_grow, hnsw_init,
-                                   hnsw_insert_batch, hnsw_search,
+from repro_torch.core import hnsw as _hnsw
+from repro_torch.core.hnsw import (HNSWConfig, HNSWState, hnsw_grow, hnsw_init,
                                    state_from_numpy, state_to_numpy)
 from repro_torch.index.pipeline import greedy_leader
 
@@ -50,6 +49,14 @@ __all__ = ["sharded_init", "make_sharded_dedup_step", "sharded_grow",
            "make_sharded_search", "stack_states", "unstack_states"]
 
 _INF = float("inf")
+
+# Each sharded program below is one program of its own in the reference (a
+# jitted shard_map), whose inner entry-point calls are traced and add no
+# entry to `program_cache_sizes()`; the unrecorded entry points keep that.
+hnsw_search = _hnsw.hnsw_search.__wrapped__
+hnsw_insert_batch = _hnsw.hnsw_insert_batch.__wrapped__
+hnsw_delete = _hnsw.hnsw_delete.__wrapped__
+hnsw_compact = _hnsw.hnsw_compact.__wrapped__
 
 
 def sharded_init(cfg: HNSWConfig, nshards: int,

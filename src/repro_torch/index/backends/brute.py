@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.programs import (ProgramBudget, ProgramSpec,
+                                           register_programs)
 from repro_torch.core.bitmap import pairwise_minhash_jaccard
 from repro_torch.core.dedup import FoldConfig
 from repro_torch.device import resolve_device
@@ -207,6 +209,27 @@ class BruteForceBackend(DedupBackend):
     def stats(self) -> dict:
         return {"count": self.inserted, "capacity": self.capacity,
                 "deleted": self._n_deleted, "free": len(self._free)}
+
+
+# -- analyzable program specs (repro_torch.analysis) -------------------------
+@register_programs("index.backends.brute")
+def _brute_programs() -> list[ProgramSpec]:
+    def make_chunk(device):
+        # one full chunk of the store: the filled index's docs' lanes, the
+        # rest free (zero rows, masked)
+        from repro_torch.analysis.inputs import SPEC_BATCH, spec_index
+        ix = spec_index(_CHUNK, "minhash_jaccard")
+        chunk = torch.zeros((_CHUNK, ix.queries.shape[1]), dtype=torch.int32)
+        chunk[:ix.n_docs] = ix.state.vectors[:ix.n_docs]
+        free = torch.arange(_CHUNK) >= ix.n_docs
+        return _chunk_best, (ix.queries[:SPEC_BATCH].to(device, copy=True),
+                             chunk.to(device), free.to(device)), {}
+    return [ProgramSpec(
+        name="brute/chunk_best", make=make_chunk, alias_expect=0,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
+        budget=ProgramBudget(
+            temp_bytes=600_000_000, host_syncs=0, card_syncs=1,
+            note="the (B, CHUNK) similarity temp IS the baseline's cost "
+                 "model — _CHUNK bounds it by construction"))]
 
 
 @register("brute")

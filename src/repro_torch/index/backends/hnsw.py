@@ -29,6 +29,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.analysis.programs import (ProgramBudget, ProgramSpec,
+                                           register_programs)
 from repro_torch.core.bitmap import pairwise_hamming, pairwise_minhash_jaccard
 from repro_torch.core.dedup import FoldConfig, batch_jaccard, bitmap_tau
 from repro_torch.core.hnsw import (HNSWConfig, HNSWState, hnsw_compact,
@@ -482,6 +484,100 @@ class RawHNSWBackend(_HNSWLifecycle):
         return {"count": self.inserted, "capacity": self.capacity,
                 "metric": self.metric, "deleted": self._n_deleted,
                 "dead": self._n_dead, "free": len(self._free or [])}
+
+
+# -- analyzable program specs (repro_torch.analysis) -------------------------
+# The reference's pinned spec geometry (independent of FoldConfig defaults so
+# a default bump does not silently re-baseline the goldens), run on the
+# seeded filled index of repro_torch.analysis.inputs.
+_SPEC_CAP = 8192      # index capacity (slots)
+_SPEC_K = 4
+_SPEC_DELETE = 64     # ids per delete: every 16th filled slot
+_STATE_LEAVES = len(HNSWState._fields)
+
+
+def _delete_ids(ix, device) -> torch.Tensor:
+    step = max(ix.n_docs // _SPEC_DELETE, 1)
+    return torch.arange(0, step * _SPEC_DELETE, step, dtype=torch.int32,
+                        device=device)
+
+
+def _search_spec(name: str, metric: str, syncs: tuple[int, int],
+                 temp_bytes: int) -> ProgramSpec:
+    def make(device):
+        from repro_torch.analysis.inputs import spec_index
+        ix = spec_index(_SPEC_CAP, metric).on(device)
+        return hnsw_search, (ix.cfg, ix.state, ix.queries), {"k": _SPEC_K}
+    return ProgramSpec(
+        name=name, make=make, alias_expect=0,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
+        budget=ProgramBudget(
+            temp_bytes=temp_bytes, gather=220, host_syncs=syncs[0],
+            card_syncs=syncs[1],
+            note="temp ceiling raised from the reference's 24,000,000 to "
+                 "the card's measurement: each beam step's (Q, F*M0, W) "
+                 "gather of candidate rows and its int64 popcount "
+                 "temporaries are materialized, where XLA fuses them"))
+
+
+@register_programs("index.backends.hnsw")
+def _hnsw_programs() -> list[ProgramSpec]:
+    def make_insert(device):
+        from repro_torch.analysis.inputs import spec_index
+        ix = spec_index(_SPEC_CAP).on(device)
+        free = torch.full_like(ix.pcs, -1)
+        return hnsw_insert_batch, (ix.cfg, ix.state, ix.queries, ix.pcs,
+                                   ix.levels, ix.keep, ix.seed_ids, free), {}
+
+    def make_delete(device):
+        from repro_torch.analysis.inputs import spec_index
+        ix = spec_index(_SPEC_CAP).on(device)
+        return hnsw_delete, (ix.cfg, ix.state, _delete_ids(ix, device)), {}
+
+    def make_compact(device):
+        # compact after the delete spec's tombstones: real repair work
+        from repro_torch.analysis.inputs import spec_index
+        ix = spec_index(_SPEC_CAP).on(device)
+        ix.state.dead[_delete_ids(ix, device).to(torch.int64)] = True
+        return hnsw_compact, (ix.cfg, ix.state), {}
+
+    return [
+        _search_spec("hnsw/search", "bitmap_jaccard", (29, 29), 80_000_000),
+        _search_spec("hnsw_raw/search", "minhash_jaccard", (25, 25),
+                     26_000_000),
+        ProgramSpec(
+            name="hnsw/insert", make=make_insert,
+            alias_expect=_STATE_LEAVES - 3,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
+            budget=ProgramBudget(
+                temp_bytes=80_000_000, scatter=230, host_syncs=54,
+                card_syncs=63,
+                note="two-phase batched insert (discover + commit), in "
+                     "place: the returned state shares vectors, pb, "
+                     "neighbors, node_level and dead; count, entry and "
+                     "top_level are re-made 0-d tensors (12 bytes at any "
+                     "capacity; the reference donates all 8). Ceilings "
+                     "over the reference's: scatter 230 (200; each "
+                     "lockstep beam step is its own scatters, 221 "
+                     "measured) and temp 80,000,000 (64,000,000; the "
+                     "search's materialized temporaries, 77,252,096 on "
+                     "the card)")),
+        ProgramSpec(
+            name="hnsw/delete", make=make_delete,
+            alias_expect=_STATE_LEAVES,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
+            budget=ProgramBudget(temp_bytes=8_000_000, host_syncs=1,
+                                 card_syncs=2)),
+        ProgramSpec(
+            name="hnsw/compact", make=make_compact,
+            alias_expect=_STATE_LEAVES - 3,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
+            budget=ProgramBudget(
+                temp_bytes=1_250_000_000, host_syncs=7, card_syncs=7,
+                note="adjacency repair runs off the hot path (lifecycle "
+                     "watermark), in place: entry, top_level and count are "
+                     "re-derived 0-d tensors (the reference's 6 of 8 keep "
+                     "count). temp ceiling 1,250,000,000 over the "
+                     "reference's 800,000,000: the repair pool's (chunk, "
+                     "K, W) rows and int64 popcounts, 1,214,590,976 on "
+                     "the card")),
+    ]
 
 
 @register("hnsw")

@@ -45,6 +45,8 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.analysis.programs import (ProgramBudget, ProgramSpec,
+                                           register_programs)
 from repro_torch.core.dedup import FoldConfig, bitmap_tau
 from repro_torch.core.hnsw import HNSWState, sample_levels
 from repro_torch.core.sharded import (make_sharded_compact,
@@ -426,6 +428,39 @@ class ShardedDedupBackend(DedupBackend):
                 "shards": self.nshards, "deleted": self._n_deleted,
                 "dead": self._n_dead,
                 "free": sum(len(f) for f in self._free)}
+
+
+# -- analyzable program specs (repro_torch.analysis) -------------------------
+# The fused ②-⑤ step on ONE shard, as the reference's spec pins a 1-device
+# mesh: the step runs every shard's programs in turn, so one shard is the
+# program the layout repeats.
+_SPEC_CAP = 4096      # per-shard capacity
+_SPEC_B = 64
+
+
+@register_programs("index.backends.sharded")
+def _sharded_programs() -> list[ProgramSpec]:
+    def make_step(device):
+        from repro_torch.analysis.inputs import spec_index
+        cfg = FoldConfig(capacity=_SPEC_CAP)
+        ix = spec_index(_SPEC_CAP).on(device)
+        step = make_sharded_dedup_step(
+            ix.cfg, 1, tau=bitmap_tau(cfg), k=cfg.k, masked=True,
+            reuse_search=True, free_slots=True)
+        B = _SPEC_B
+        return step, ([ix.state], ix.queries[:B], ix.pcs[:B], ix.levels[:B],
+                      torch.ones(B, dtype=torch.bool, device=device),
+                      torch.full((1, B), -1, dtype=torch.int32,
+                                 device=device)), {}
+    return [ProgramSpec(
+        name="hnsw_sharded/fused_step", make=make_step,
+        alias_expect=len(HNSWState._fields) - 3,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
+        budget=ProgramBudget(
+            temp_bytes=900_000_000, host_syncs=72, card_syncs=84,
+            note="each shard's insert updates its state in place: vectors, "
+                 "pb, neighbors, node_level and dead are shared, count, "
+                 "entry and top_level re-made 0-d tensors (the reference "
+                 "keeps donation off and aliases none)"))]
 
 
 @register("hnsw_sharded")

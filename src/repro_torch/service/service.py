@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 
 from repro_torch.core.dedup import FoldConfig
+from repro_torch.core.hnsw import program_cache_sizes
 from repro_torch.index import make_pipeline, validate_opts
 from repro_torch.index.exact import doc_hash
 from repro_torch.lifecycle import LifecycleManager
@@ -412,8 +413,6 @@ class DedupService:
             "inflight_docs": self.executor.inflight_docs,
             "rejected_docs": self.metrics.counters.get("docs_rejected", 0)
             + self.batcher.rejected,
-            # the reference reports its jit-cache sizes here; eager PyTorch
-            # compiles no per-shape program (compiled_shapes bounds shapes)
-            "compiled_programs": {},
+            "compiled_programs": program_cache_sizes(),
         }
         return snap

@@ -459,3 +459,30 @@ def test_cuda_sharded_matches_cpu(cuda, tmp_path, shards):
     name = "step_00000001/arrays.msgpack"
     assert (tmp_path / "cuda" / name).read_bytes() == \
         (tmp_path / "cpu" / name).read_bytes()
+
+
+@pytest.mark.gpu
+def test_cuda_program_gate_holds_on_one_spec(cuda, capsys):
+    """`python -m repro_torch.analysis check --device cuda` on hnsw/delete:
+    its budgets hold on the card (syncs, temp bytes), and the run equals
+    the CPU's in interface, aliasing, data-dependent ops and outputs."""
+    from repro_torch.analysis import analyze_program, default_specs
+    from repro_torch.analysis.__main__ import main
+    from repro_torch.analysis.analyze import tensor_leaves
+    assert main(["check", "--device", "cuda", "--select", "hnsw/delete"]) == 0
+    assert "golden fingerprints not compared on cuda" in capsys.readouterr().out
+    spec, = default_specs(["hnsw/delete"])
+    got, want = analyze_program(spec, cuda), analyze_program(spec, "cpu")
+    for key in ("in_avals", "out_avals", "aliased", "data_dependent_ops",
+                "memory"):
+        if key == "memory":
+            assert got.fingerprint[key]["argument_bytes"] == \
+                want.fingerprint[key]["argument_bytes"]
+            assert got.fingerprint[key]["temp_bytes"] > 0
+        else:
+            assert got.fingerprint[key] == want.fingerprint[key], key
+    assert got.measure.syncs >= got.measure.data_dependent
+    assert got.measure.launches > 0
+    for a, b in zip(tensor_leaves(got.measure.outputs),
+                    tensor_leaves(want.measure.outputs)):
+        assert torch.equal(a.cpu(), b)

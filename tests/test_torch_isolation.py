@@ -2,8 +2,9 @@
 jax, the JAX package `repro` nor msgpack, at run time or anywhere in their
 source, and the port saves and restores its checkpoints (every ported
 backend, `hnsw_sharded` at 4 shards and its scale-out restore, the
-baselines through `repro_torch.baselines`), and serves a service with
-snapshots, sharded too, where none of the three can be imported."""
+baselines through `repro_torch.baselines`), serves a service with
+snapshots, sharded too, and lists its program specs (`python -m
+repro_torch.analysis list`) where none of the three can be imported."""
 import ast
 import os
 import subprocess
@@ -26,7 +27,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data.ingest, repro_torch.baselines, "
             "repro_torch.index.backends.lsh, "
             "repro_torch.index.backends.prefix, repro_torch.core.minhash, "
-            "repro_torch.core.sharded, repro_torch.index.backends.sharded; "
+            "repro_torch.core.sharded, repro_torch.index.backends.sharded, "
+            "repro_torch.analysis, repro_torch.analysis.gate, "
+            "repro_torch.analysis.inputs, repro_torch.analysis.__main__, "
+            "repro_torch.service.programs; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -122,6 +126,15 @@ svc.flush()
 assert len(svc.results(ticket)) == 20
 assert svc.pipeline.backend.name == "hnsw_sharded"
 assert svc.index_manager.committed_steps() == (1, 2)
+import contextlib, io, runpy
+sys.argv = ["repro_torch.analysis", "list"]
+listed = io.StringIO()
+with contextlib.redirect_stdout(listed):
+    try:
+        runpy.run_module("repro_torch.analysis", run_name="__main__")
+    except SystemExit as stop:
+        assert stop.code == 0, stop.code
+assert len(listed.getvalue().splitlines()) == 11, listed.getvalue()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(bad)

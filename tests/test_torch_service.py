@@ -47,8 +47,21 @@ def _docs(n, seed=0, lo=8, hi=300):
             for _ in range(n)]
 
 
+def _fresh_program_caches():
+    """Empty both packages' program caches (JAX's process-wide jit caches
+    and the port's signature sets; the JAX side recompiles): a service's
+    compiled_programs then counts its own programs, whatever ran earlier
+    in the process."""
+    for fn in (J.hnsw_search, J.hnsw_insert_batch, J.hnsw_delete,
+               J.hnsw_compact, T.hnsw_search, T.hnsw_insert_batch,
+               T.hnsw_delete, T.hnsw_compact):
+        fn.clear_cache()
+
+
 def _services(fold, **svc):
-    """The JAX service and the port's (on the CPU) from one config."""
+    """The JAX service and the port's (on the CPU) from one config, with
+    fresh program caches."""
+    _fresh_program_caches()
     jax_svc = JaxDedupService(JaxServiceConfig(fold=JaxFoldConfig(**fold),
                                                **svc))
     port = DedupService(ServiceConfig(fold=FoldConfig(**fold), device="cpu",  # foldlint: disable=F141 (the port's ServiceConfig adds device)
@@ -87,8 +100,9 @@ def _assert_stats_equal(port, jax_svc):
                 "snapshots", "n_deleted", "dead_fraction", "backend_stats"):
         assert g["index"][key] == w["index"][key], key
     gb, wb = dict(g["batching"]), dict(w["batching"])
-    assert gb.pop("compiled_programs") == {}
-    wb.pop("compiled_programs")
+    # the caches were emptied when the services were made: each count is
+    # its package's programs since then, the port's delta and JAX's
+    assert gb.pop("compiled_programs") == wb.pop("compiled_programs")
     assert gb == wb
     assert {k: h["n"] for k, h in g["latency_ms"].items()} == \
         {k: h["n"] for k, h in w["latency_ms"].items()}
@@ -430,6 +444,7 @@ def test_service_snapshots_byte_identical_to_jax(tmp_path, monkeypatch):
     dirs = {tag: str(tmp_path / tag) for tag in ("jax", "port")}
     svc = dict(max_batch=32, max_wait_ms=0.0, batch_buckets=(32,),
                stage_timer_every=0, snapshot_every=2, max_snapshots=2)
+    _fresh_program_caches()
     jax_svc = JaxDedupService(JaxServiceConfig(
         fold=JaxFoldConfig(**FC), snapshot_dir=dirs["jax"], **svc))
     port = DedupService(ServiceConfig(
@@ -575,7 +590,7 @@ def test_service_config_device_and_sharding_rules():
     """ServiceConfig.device=None means cuda (raises without a card);
     shards > 1 promotes to hnsw_sharded, every shard on the service's
     device; any other backend with shards > 1 is refused;
-    compiled_programs is kept, empty."""
+    compiled_programs is program_cache_sizes()."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="found no GPU"):
             DedupService(ServiceConfig(fold=FoldConfig(**SMALL)))
@@ -593,7 +608,8 @@ def test_service_config_device_and_sharding_rules():
     port = DedupService(ServiceConfig(fold=FoldConfig(**SMALL),
                                       device="cpu"))  # foldlint: disable=F141 (the port's ServiceConfig adds device)
     assert port.pipeline.device == torch.device("cpu")
-    assert port.stats()["batching"]["compiled_programs"] == {}
+    assert port.stats()["batching"]["compiled_programs"] == \
+        T.program_cache_sizes()
     assert [f.name for f in dataclasses.fields(ServiceConfig)] == [
         f.name for f in dataclasses.fields(JaxServiceConfig)] + ["device"]
 
@@ -619,6 +635,7 @@ def test_service_equals_process_batch_over_emitted_batches():
     _assert_verdicts_equal(got, [v for t, _ in tickets
                                  for v in jax_svc.results(t)])
     assert any(mb.n_docs < mb.shape[0] for mb in emitted)
+    _assert_stats_equal(port, jax_svc)     # before the port-only loop below
     ref = FoldPipeline(FoldConfig(**FC), device="cpu")
     keep = np.concatenate([ref.process_batch(mb.tokens[:mb.n_docs],
                                              mb.lengths[:mb.n_docs])[0]
@@ -626,4 +643,3 @@ def test_service_equals_process_batch_over_emitted_batches():
     order = np.concatenate([mb.doc_ids[:mb.n_docs] for mb in emitted])
     assert np.array_equal(keep, np.asarray([v.admitted for v in got])[order])
     _assert_states_equal(ref, jax_svc.pipeline)
-    _assert_stats_equal(port, jax_svc)
