@@ -474,13 +474,17 @@ def phase_pipeline(batches, card: str, dev):
 def device_profile(fn, name: str) -> tuple[dict, object]:
     """Run fn() once under torch.profiler: its wall time (the profiler's
     own cost included), the device busy time from the trace's kernel,
-    memcpy and memset events, their count, and the costliest kernels and
-    runtime calls. The trace goes to build/profile/<name>.json and is read
-    back. Returns (that record, fn's result)."""
+    memcpy and memset events, the device ops the host enqueued
+    (`repro_torch.analysis.analyze.device_op_calls`, the count phase 12
+    uses), and the costliest kernels and runtime calls. The trace goes to
+    build/profile/<name>.json and is read back. Returns (that record, fn's
+    result)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.analyze import (device_events, device_op_calls,
+                                              trace_events)
     os.makedirs(PROFILE_DIR, exist_ok=True)
-    path = os.path.join(PROFILE_DIR, f"{name}.json")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -488,18 +492,15 @@ def device_profile(fn, name: str) -> tuple[dict, object]:
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+    events = trace_events(prof, os.path.join(PROFILE_DIR, f"{name}.json"))
     dev, runtime = {}, {}
+    for e in device_events(events):
+        n, t = dev.get(e.get("name", ""), (0, 0.0))
+        dev[e.get("name", "")] = (n + 1, t + e.get("dur", 0))
     for e in events:
-        cat, ev, dur = e.get("cat"), e.get("name", ""), e.get("dur", 0)
-        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
-            n, t = dev.get(ev, (0, 0.0))
-            dev[ev] = (n + 1, t + dur)
-        elif cat == "cuda_runtime":
-            n, t = runtime.get(ev, (0, 0.0))
-            runtime[ev] = (n + 1, t + dur)
+        if e.get("cat") == "cuda_runtime":
+            n, t = runtime.get(e.get("name", ""), (0, 0.0))
+            runtime[e.get("name", "")] = (n + 1, t + e.get("dur", 0))
     busy_ms = sum(t for _, t in dev.values()) / 1e3
 
     def top(d, n):
@@ -508,7 +509,8 @@ def device_profile(fn, name: str) -> tuple[dict, object]:
 
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "device_ops": sum(c for c, _ in dev.values()),
+            "device_ops": device_op_calls(events)[1],
+            "device_events": sum(c for c, _ in dev.values()),
             "top_device": top(dev, 6), "top_runtime": top(runtime, 4)}, out
 
 
@@ -1194,14 +1196,14 @@ def phase_programs(main_state, replay_batch, fresh_batch, batch_profile,
     for spec in specs:
         cpu = analyze_program(spec, "cpu")
         gpu = analyze_program(spec, dev)
-        if not gpu.measure.launches:
-            # a short program's trace has come back without its device
-            # events (brute/chunk_best, twice on an H100 under torch 2.11):
-            # run it once more on fresh inputs; still none reads "not
-            # measured" (launches 0)
-            log(f"programs {spec.name}: the trace held no kernel event; "
+        if gpu.measure.launches is None:
+            # the trace held no launch call (see analyze.py's docstring):
+            # once more on fresh inputs, and a second loss fails the phase
+            log(f"programs {spec.name}: the trace held no launch call; "
                 f"running it again")
             gpu = analyze_program(spec, dev)
+            if gpu.measure.launches is None:
+                fail(f"programs: {spec.name}'s launches not measured twice")
         reports[spec.name] = gpu
         fc, fg = cpu.fingerprint, gpu.fingerprint
         for key in ("in_avals", "out_avals", "aliased", "f64",
@@ -1219,6 +1221,10 @@ def phase_programs(main_state, replay_batch, fresh_batch, batch_profile,
             fail("programs: violations on the card: " + "; ".join(
                 v.render() for v in gpu.violations))
         m = gpu.measure
+        if not m.temp_bytes:
+            # every spec allocates on the card: a peak that did not move
+            # is a lost reading, not a program without temporaries
+            fail(f"programs: {spec.name}'s temp bytes read 0")
         row = dict(card_syncs=m.syncs,
                    data_dependent_ops=m.data_dependent,
                    budget_card_syncs=spec.budget.card_syncs,
@@ -1258,6 +1264,9 @@ def phase_programs(main_state, replay_batch, fresh_batch, batch_profile,
 
     def record(tag, fn, *args, **kwargs):
         m = measure_run(fn, *args, device=dev, **kwargs)
+        if m.launches is None or not m.temp_bytes:
+            fail(f"programs: {tag} not measured: launches {m.launches}, "
+                 f"temp bytes {m.temp_bytes}")
         row = dict(card_syncs=m.syncs, data_dependent_ops=m.data_dependent,
                    launches=m.launches, device_ops=m.device_ops,
                    temp_bytes=m.temp_bytes, wall_ms=m.wall_ms,

@@ -8,10 +8,11 @@ Subcommands:
           (refused while a budget fails); written on the CPU
   list    print the registered program specs and exit (runs nothing)
 
-`--device` defaults to the CPU, where the goldens were written. With
-`--device cuda` the budgets, card syncs and temp bytes are checked on the
-card and the goldens are not compared (they hold for the CPU install that
-wrote them); with no card it raises and never falls back.
+`--device` defaults to the card, as every entry point of the port does;
+with no card it raises and never falls back. On the card the budgets, card
+syncs and temp bytes are checked and the goldens are not compared (they
+hold for the CPU install that wrote them). `--device cpu` runs the gate on
+the CPU against the goldens; `update` writes them there and needs it.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import sys
 
 from repro_torch.analysis.gate import (REBASELINE, render_report, run_gate,
                                        write_fingerprints)
+from repro_torch.device import resolve_device
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -33,7 +35,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="comma-separated program names, name prefixes "
                          "(e.g. 'hnsw') or families to analyze "
                          "(default: all; disables the orphan-golden sweep)")
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default=None, choices=("cpu", "cuda"),
+                    help="default: cuda (raises without a card)")
     ap.add_argument("--fingerprints", default=None,
                     help="golden fingerprint directory override (default: "
                          "src/repro_torch/analysis/fingerprints)")
@@ -50,10 +53,11 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     if args.command == "update" and args.device != "cpu":
-        ap.error("goldens are written on the CPU")
-    golden = args.command == "check" and args.device == "cpu"
+        ap.error("goldens are written on the CPU: pass --device cpu")
+    device = resolve_device(args.device)
+    golden = args.command == "check" and device.type == "cpu"
     reports, violations = run_gate(select=select, golden_dir=args.fingerprints,
-                                   golden=golden, device=args.device)
+                                   golden=golden, device=device)
 
     if args.command == "update":
         if violations:
@@ -69,7 +73,7 @@ def main(argv: list[str] | None = None) -> int:
     print(render_report(reports, violations),
           file=sys.stderr if violations else sys.stdout)
     if not golden:
-        print(f"golden fingerprints not compared on {args.device}")
+        print(f"golden fingerprints not compared on {device.type}")
     if violations:
         print(f"\n{len(violations)} violation(s); re-baseline with "
               f"`{REBASELINE}` only if the drift is intended",

@@ -13,9 +13,16 @@ seed, and observes the run:
 
   * a TorchDispatchMode records every aten op, the dtypes of its outputs
     and which input tensors it touched (any device);
-  * on a card, also the caching allocator's peak, the profiler's kernel
-    events and the synchronizations `torch.cuda.set_sync_debug_mode`
-    reports.
+  * on a card, also the caching allocator's peak (Python's cycle collector
+    runs before the run and is held off during it), the kernel launches
+    and device operations of a `torch.profiler` trace, and the
+    synchronizations `torch.cuda.set_sync_debug_mode` reports. Launches and
+    device ops are counted from the host's runtime calls that enqueue them
+    (`device_op_calls`), not from the device's own records of them: on an
+    H100 under torch 2.11 a trace has come back short of some of a
+    program's kernel records, or of all of a 2 ms program's, while its
+    launch calls were the same in every run. A trace with no launch call
+    reads as not measured: `launches` and `device_ops` are None.
 
 The port's CUDA kernels launch through ctypes and are invisible to the
 dispatch mode (the profiler sees them); no spec reaches one.
@@ -61,6 +68,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import os
 import tempfile
@@ -100,6 +108,13 @@ _GATHER = ("gather", "index", "index_select", "take")
 _SCATTER = ("index_put", "index_put_", "scatter", "scatter_", "scatter_add",
             "scatter_add_", "scatter_reduce", "scatter_reduce_", "index_add",
             "index_add_", "index_copy", "index_copy_", "put_")
+# the device's records of its operations in a profiler trace, by category
+DEVICE_OP_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the runtime/driver calls that launch one kernel each, and the prefixes of
+# those that enqueue one copy or set each
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx")
+_COPY_CALLS = ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
 # the reference's memory_analysis counts one 8-byte pointer per output leaf
 # (the result tuple); the port keeps that convention so the bytes compare
 _OUT_POINTER_BYTES = 8
@@ -133,8 +148,8 @@ class RunMeasure:
     touched: set[int]              # indices of the input leaves an op read
     wall_ms: float
     syncs: int | None = None       # sync-debug synchronizations
-    launches: int | None = None    # profiler kernel events
-    device_ops: int | None = None  # kernel + memcpy + memset events
+    launches: int | None = None    # kernel launch calls (None: lost)
+    device_ops: int | None = None  # launch + memcpy + memset calls
     temp_bytes: int | None = None  # allocator peak above the start
 
     def count(self, names: Iterable[str]) -> int:
@@ -209,16 +224,38 @@ class _Observer(TorchDispatchMode):
         return out
 
 
-def _kernel_events(prof) -> tuple[int, int]:
-    """(kernel events, kernel + memcpy + memset events) of a finished
-    torch.profiler run, read from its exported trace."""
+def trace_events(prof, path: str | None = None) -> list[dict]:
+    """The events of a finished torch.profiler run, from its chrome trace
+    (written to `path`, or to a temporary file)."""
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
+        path = path or os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    cats = collections.Counter(e.get("cat") for e in events)
-    return cats["kernel"], cats["kernel"] + cats["gpu_memcpy"] + cats["gpu_memset"]
+            return json.load(f)["traceEvents"]
+
+
+def device_events(events: list[dict]) -> list[dict]:
+    """The device's records of its operations in a trace: its kernel,
+    memcpy and memset events (for device time; some may be lost)."""
+    return [e for e in events if e.get("cat") in DEVICE_OP_CATS]
+
+
+def device_op_calls(events: list[dict]) -> tuple[int, int]:
+    """(kernel launches, device ops) of a trace, counted from the host's
+    runtime and driver calls that enqueue them: one launch call per kernel,
+    one copy or set call per memcpy or memset. This is what the port means
+    by a device op."""
+    launches = ops = 0
+    for e in events:
+        if e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        name = e.get("name", "")
+        if name in _LAUNCH_CALLS:
+            launches += 1
+            ops += 1
+        elif name.startswith(_COPY_CALLS):
+            ops += 1
+    return launches, ops
 
 
 def measure_run(fn, *args, device, **kwargs) -> RunMeasure:
@@ -237,6 +274,12 @@ def measure_run(fn, *args, device, **kwargs) -> RunMeasure:
                           wall_ms=(time.perf_counter() - t0) * 1e3)
 
     from torch.profiler import ProfilerActivity, profile
+    # no collection inside the run: a cycle of earlier card tensors freed
+    # there lowers the allocated bytes under `base`, and the run's own
+    # temporaries then read as 0 temp bytes (hnsw/compact's 1.2 GB did)
+    gc.collect()
+    gc_was_enabled = gc.isenabled()
+    gc.disable()
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -250,15 +293,19 @@ def measure_run(fn, *args, device, **kwargs) -> RunMeasure:
                     out = fn(*args, **kwargs)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
+                if gc_was_enabled:
+                    gc.enable()
         torch.cuda.synchronize(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    launches, device_ops = _kernel_events(prof)
+    launches, n_ops = device_op_calls(trace_events(prof))
+    if not launches:                 # the trace lost its runtime calls
+        launches = n_ops = None
     syncs = sum("synchronizing CUDA operation" in str(w.message)
                 for w in caught)
     return RunMeasure(outputs=out, ops=dict(sorted(obs.ops.items())),
                       wide=sorted(obs.wide), data_dependent=obs.data_dependent,
                       touched=obs.touched, wall_ms=wall_ms, syncs=syncs,
-                      launches=launches, device_ops=device_ops,
+                      launches=launches, device_ops=n_ops,
                       temp_bytes=torch.cuda.max_memory_allocated(dev) - base)
 
 
@@ -292,11 +339,13 @@ def _check_budgets(spec: ProgramSpec, m: RunMeasure, memory: dict):
     return out
 
 
-def analyze_program(spec: ProgramSpec, device: str | torch.device = "cpu"
+def analyze_program(spec: ProgramSpec,
+                    device: str | torch.device | None = None
                     ) -> ProgramReport:
     """Make the spec's inputs on `device`, run the program once, and
-    return its fingerprint and budget violations. `device="cuda"` with no
-    card raises (resolve_device): the analysis never falls back."""
+    return its fingerprint and budget violations. `device=None` means
+    cuda, and cuda with no card raises (resolve_device): the analysis
+    never falls back to the CPU unless `device="cpu"` is passed."""
     dev = resolve_device(device)
     fn, args, kwargs = spec.make(dev)
     ins = tensor_leaves((args, kwargs))

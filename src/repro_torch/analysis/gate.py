@@ -111,9 +111,9 @@ def compare_fingerprint(name: str, golden: dict | None, fresh: dict
 
 
 def run_gate(select: Iterable[str] | None = None, golden_dir=None,
-             golden: bool = True, device: str = "cpu"):
-    """Analyze the registered specs on `device`; return (reports,
-    violations).
+             golden: bool = True, device=None):
+    """Analyze the registered specs on `device` (None: cuda, which raises
+    without a card); return (reports, violations).
 
     reports: {name: ProgramReport}. violations: budget checks (F151-F161)
     plus, when `golden`, fingerprint drift (F162) including orphaned

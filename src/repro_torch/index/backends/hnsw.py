@@ -147,9 +147,13 @@ class _HNSWLifecycle(DedupBackend):
         ids = ids[(ids >= 0) & (ids < self.hnsw_cfg.capacity)]
         if len(ids) == 0:
             return 0
+        # pad to the next power of two so that the delete program's
+        # signatures (program_cache_sizes) grow as the reference's do
+        D = 1 << int(len(ids) - 1).bit_length() if len(ids) > 1 else 1
+        pad = np.full(D, -1, np.int32)
+        pad[:len(ids)] = ids
         self.state, n_dev = hnsw_delete(
-            self.hnsw_cfg, self.state,
-            torch.from_numpy(ids.astype(np.int32)).to(self.device))
+            self.hnsw_cfg, self.state, torch.from_numpy(pad).to(self.device))
         n = int(n_dev)
         self._n_deleted += n
         self._n_dead += n

@@ -53,7 +53,7 @@ def test_select_by_name_prefix_and_family(select, want):
 @pytest.fixture(scope="module")
 def gate_run():
     torch.set_num_threads(1)
-    return gate.run_gate()
+    return gate.run_gate(device="cpu")
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -107,6 +107,10 @@ def _spec(name, fn, args, kwargs=None, **kw):
     return ProgramSpec(name=name, make=make, **kw)
 
 
+def _on_cpu(spec):
+    return analyze_program(spec, "cpu")
+
+
 def _clone(state):
     return T.HNSWState(*(t.clone() for t in state))
 
@@ -117,7 +121,7 @@ def _search_args(tiny_index):
 
 
 def test_clean_search_fires_nothing(tiny_index):
-    rep = analyze_program(_spec("canary/search", T.hnsw_search,
+    rep = _on_cpu(_spec("canary/search", T.hnsw_search,
                                 _search_args(tiny_index), {"k": 2}))
     assert rep.violations == []
     assert rep.fingerprint["in_avals"][-1] == "int32[64,32]"
@@ -134,7 +138,7 @@ def test_f151_float64_canary(tiny_index, monkeypatch):
         d = 2.0 * px.to(torch.float64) / torch.clamp(denom, min=1)
         return torch.where(denom > 0, d, torch.zeros_like(d)).float()
     monkeypatch.setattr(T, "_bitmap_dist", dist64)
-    rep = analyze_program(_spec("canary/f64_search", T.hnsw_search,
+    rep = _on_cpu(_spec("canary/f64_search", T.hnsw_search,
                                 _search_args(tiny_index), {"k": 2}))
     hits = [v for v in rep.violations if v.check == "F151"]
     assert hits and hits[0].program == "canary/f64_search"
@@ -148,7 +152,7 @@ def test_f152_64bit_interface_canary(tiny_index):
     def widened(cfg, st, queries):
         ids, sims = T.hnsw_search(cfg, st, queries, k=2)
         return ids.to(torch.int64), sims
-    rep = analyze_program(_spec("canary/wide_out", widened,
+    rep = _on_cpu(_spec("canary/wide_out", widened,
                                 (_TINY, _clone(state), q)))
     assert [v.check for v in rep.violations] == ["F152"]
     assert "out:int64[64,2]" in rep.violations[0].message
@@ -159,14 +163,14 @@ def test_f153_cloned_state_canary(tiny_index):
     aliases no input leaf where the in-place delete aliases all eight."""
     state = tiny_index[0]
     ids = torch.arange(0, 64, 4, dtype=torch.int32)
-    clean = analyze_program(_spec(
+    clean = _on_cpu(_spec(
         "canary/delete", T.hnsw_delete, (_TINY, _clone(state), ids),
         alias_expect=8))
     assert clean.violations == [] and clean.fingerprint["aliased"] == 8
 
     def copying(cfg, st, i):
         return T.hnsw_delete(cfg, _clone(st), i)
-    rep = analyze_program(_spec("canary/delete_copy", copying,
+    rep = _on_cpu(_spec("canary/delete_copy", copying,
                                 (_TINY, _clone(state), ids), alias_expect=8))
     hits = [v for v in rep.violations if v.check == "F153"]
     assert hits and "copied per call" in hits[0].message
@@ -176,15 +180,15 @@ def test_f153_cloned_state_canary(tiny_index):
 def test_f154_peak_bytes_canary(tiny_index):
     """The CPU has no temp counter, but argument + output bytes are exact:
     a peak ceiling below them fires."""
-    rep = analyze_program(_spec("canary/search", T.hnsw_search,
+    rep = _on_cpu(_spec("canary/search", T.hnsw_search,
                                 _search_args(tiny_index), {"k": 2}))
     mem = rep.fingerprint["memory"]
     need = mem["argument_bytes"] + mem["output_bytes"]
-    fits = analyze_program(_spec("canary/search", T.hnsw_search,
+    fits = _on_cpu(_spec("canary/search", T.hnsw_search,
                                  _search_args(tiny_index), {"k": 2},
                                  budget=ProgramBudget(peak_bytes=need)))
     assert fits.violations == []
-    over = analyze_program(_spec("canary/search", T.hnsw_search,
+    over = _on_cpu(_spec("canary/search", T.hnsw_search,
                                  _search_args(tiny_index), {"k": 2},
                                  budget=ProgramBudget(peak_bytes=need - 1)))
     assert [v.check for v in over.violations] == ["F154"]
@@ -192,7 +196,7 @@ def test_f154_peak_bytes_canary(tiny_index):
 
 def test_f155_extra_item_canary(tiny_index):
     """A ceiling at today's count holds; one more `.item()` breaks it."""
-    clean = analyze_program(_spec("canary/search", T.hnsw_search,
+    clean = _on_cpu(_spec("canary/search", T.hnsw_search,
                                   _search_args(tiny_index), {"k": 2}))
     n = clean.fingerprint["data_dependent_ops"]
 
@@ -201,17 +205,17 @@ def test_f155_extra_item_canary(tiny_index):
         ids.max().item()
         return ids, sims
     budget = ProgramBudget(host_syncs=n)
-    assert analyze_program(_spec("canary/search", T.hnsw_search,
+    assert _on_cpu(_spec("canary/search", T.hnsw_search,
                                  _search_args(tiny_index), {"k": 2},
                                  budget=budget)).violations == []
-    rep = analyze_program(_spec("canary/item", with_item,
+    rep = _on_cpu(_spec("canary/item", with_item,
                                 _search_args(tiny_index), budget=budget))
     assert [v.check for v in rep.violations] == ["F155"]
     assert f"host_syncs {n + 1} over budget {n}" in rep.violations[0].message
 
 
 def test_f156_gather_canary(tiny_index):
-    clean = analyze_program(_spec("canary/search", T.hnsw_search,
+    clean = _on_cpu(_spec("canary/search", T.hnsw_search,
                                   _search_args(tiny_index), {"k": 2}))
     n = clean.fingerprint["gather"]
 
@@ -219,7 +223,7 @@ def test_f156_gather_canary(tiny_index):
         ids, sims = T.hnsw_search(cfg, st, q, k=2)
         st.vectors[torch.clamp(ids[:, 0], min=0).to(torch.int64)]
         return ids, sims
-    rep = analyze_program(_spec("canary/gather", with_gather,
+    rep = _on_cpu(_spec("canary/gather", with_gather,
                                 _search_args(tiny_index),
                                 budget=ProgramBudget(gather=n)))
     assert [v.check for v in rep.violations] == ["F156"]
@@ -237,7 +241,7 @@ def test_f161_duplicate_bucket_canary(tiny_index):
     good = [variant(f"canary/b{b}", b, 2) for b in (16, 32)]
     dup = [variant("canary/b16", 16, 3), variant("canary/b16bis", 16, 3),
            variant("canary/b32", 32, 3)]
-    reports = {s.name: analyze_program(s) for s in good + dup}
+    reports = {s.name: _on_cpu(s) for s in good + dup}
     assert analyze_family("canary/search", good, reports) == []
     bad = analyze_family("canary/search", dup, reports)
     assert [v.check for v in bad] == ["F161"]
@@ -330,10 +334,10 @@ def test_cli_list_shows_every_spec(capsys):
 
 def test_cli_check_update_and_drift(tmp_path, capsys):
     torch.set_num_threads(1)
-    assert main(["check", "--select", "brute"]) == 0
+    assert main(["check", "--select", "brute", "--device", "cpu"]) == 0
     assert "all budgets and golden fingerprints hold" in capsys.readouterr().out
     # update writes what check reads
-    assert main(["update", "--select", "brute",
+    assert main(["update", "--select", "brute", "--device", "cpu",
                  "--fingerprints", str(tmp_path)]) == 0
     written = tmp_path / "brute__chunk_best.json"
     assert json.loads(written.read_text()) == \
@@ -342,14 +346,37 @@ def test_cli_check_update_and_drift(tmp_path, capsys):
     golden = json.loads(written.read_text())
     golden["data_dependent_ops"] += 1
     written.write_text(json.dumps(golden))
-    assert main(["check", "--select", "brute",
+    assert main(["check", "--select", "brute", "--device", "cpu",
                  "--fingerprints", str(tmp_path)]) == 1
     assert "data_dependent_ops drift" in capsys.readouterr().err
 
 
-def test_cli_cuda_without_a_card_raises():
+@pytest.mark.parametrize("argv", [
+    ["check", "--select", "brute", "--device", "cuda"],
+    ["check", "--select", "brute"],          # the default device is cuda
+])
+def test_cli_cuda_without_a_card_raises(argv):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the cuda gate runs in "
                     "tests/test_torch_cuda.py")
     with pytest.raises(RuntimeError, match="found no GPU"):
-        main(["check", "--select", "brute", "--device", "cuda"])
+        main(argv)
+
+
+def test_library_entry_points_default_to_cuda():
+    """analyze_program and run_gate treat device=None as cuda, as every
+    entry point of the port does: with no card they raise, never fall
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the cuda gate runs in "
+                    "tests/test_torch_cuda.py")
+    spec, = default_specs(["brute"])
+    with pytest.raises(RuntimeError, match="found no GPU"):
+        analyze_program(spec)
+    with pytest.raises(RuntimeError, match="found no GPU"):
+        gate.run_gate(select=["brute"])
+
+
+def test_cli_update_needs_the_cpu_named():
+    with pytest.raises(SystemExit):
+        main(["update", "--select", "brute"])

@@ -157,7 +157,9 @@ def _drive(svc, buckets, rng):
 def test_service_program_cache_deltas_match_jax():
     """tests/test_foldprog.py's drive, on both packages: every bucketed
     batch shape adds one search and one insert signature in each, a
-    replay adds none, and stats() reports the counters."""
+    replay adds none, and stats() reports the counters. Deletes of 3, 4
+    and 5 ids then add one delete signature per power of two (4 and 8)
+    in each, as the backend pads ids to the next power of two."""
     torch.set_num_threads(1)
     buckets = default_batch_buckets(16)
     svc_kw = dict(max_batch=16, len_buckets=(32,), max_len=32,
@@ -182,7 +184,14 @@ def test_service_program_cache_deltas_match_jax():
         assert {s[0] for s in snap["compiled_shapes"]} == set(buckets), tag
         _drive(svc, buckets, rng)            # replay: every shape seen
         assert sizes() == after, tag
+        backend, first = svc.pipeline.backend, 0
+        for n in (3, 4, 5):
+            assert backend.delete(np.arange(first, first + n)) == n, tag
+            first += n
+        after = sizes()
+        assert snap["compiled_programs"]["delete"] + 2 == after["delete"], tag
         deltas[tag] = {k: after[k] - before[k] for k in after}
     assert deltas["port"] == deltas["jax"]
     assert deltas["port"]["search"] == deltas["port"]["insert"] == len(buckets)
-    assert deltas["port"]["delete"] == deltas["port"]["compact"] == 0
+    assert deltas["port"]["delete"] == 2
+    assert deltas["port"]["compact"] == 0
