@@ -69,6 +69,19 @@ Phases (any failure exits non-zero and prints no result):
      batch, then hnsw_search at each service batch bucket: syncs, launches,
      device operations and temp bytes per program; the replay's device
      operations beside phase 3's profiled batch
+ 13. lm_serve — the LM stack (repro_torch.models, configs, train.step,
+     launch.serve). (a) every REDUCED arch, weights drawn from a CPU
+     generator: make_prefill_step's logits, one decode step (logits and
+     every cache leaf) and generate at batch 2, prompt 8, gen 8, on cuda
+     against cpu, at bf16 and at f32 compute (equal tokens at f32).
+     (b) qwen1.5-4b at full width (3,950,369,280 parameters, drawn on the
+     card): generate at batch 16, prompt 128, gen 64 against a 4,096-
+     position cache (prefill ms, decode tokens/s, median step ms, peak
+     memory, one profiled decode step), and make_prefill_step's logits at
+     the prompt's last position against the decode loop's; the same for
+     falcon-mamba-7b at full width (7,006,326,784 parameters). (c) one
+     qwen1.5-4b decode step at batch 1 on the card against the CPU, from
+     the same weights and cache. K1-K4 are never launched.
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -125,6 +138,20 @@ SHARDED_PARITY_CAPACITY = 4096   # per shard, cuda against cpu
 SHARDED_SERVICE_DOCS = 2048
 # phase 12 (b): a batch of phase 3's width on a copy of its final state
 PROGRAM_BATCH = 512
+# phase 13: LM serving. (a) every REDUCED arch at the widths of
+# repro_torch/configs; (b) and (c) qwen1.5-4b at full width
+LM_SMALL = (2, 8, 8)                  # batch, prompt, gen
+LM_FULL_ARCH = "qwen1_5_4b"
+LM_FULL_PARAMS = 3_950_369_280
+LM_FULL = (16, 128, 64, 4096)         # batch, prompt, gen, cache positions
+LM_CPU_CACHE = 256                    # (c): cache positions copied to host
+LM_FULL_SSM = ("falcon_mamba_7b", 7_006_326_784)   # (b) for the ssm family
+# tolerances of tests/test_torch_models.py: f32 compute 1e-4 (the SSM
+# families 2e-3); bf16 the reference's atol=0.15, rtol=0.05, and zamba2
+# (ill-conditioned at bf16) no further from the CPU's f32 result than the
+# CPU's own bf16 result, within 25%
+LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.15, 0.05)}
+LM_SSM_TOL = 2e-3
 
 # published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -1536,6 +1563,235 @@ def phase_sharded(pipe_batches, hnsw_keep, brute_matched, par_batches,
     return out
 
 
+def lm_run(cfg, dev) -> dict:
+    """One REDUCED arch on `dev`, weights drawn from a CPU generator seeded
+    0 (the same on every device): make_prefill_step's logits, one decode
+    step at pos 3 from fresh caches, and generate at LM_SMALL. Returns the
+    outputs on the host: [prefill, decode logits, generate's last prompt
+    logits, every decode cache leaf], and the generated tokens."""
+    import torch
+
+    from repro_torch.launch.serve import generate, init_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    B, P, G = LM_SMALL
+    rng = np.random.default_rng(0)
+    params, caches = init_model(cfg, B, P + G, dev, rng,
+                                generator=torch.Generator().manual_seed(0))
+    prompts = rng.integers(1, cfg.vocab, (B, P))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.prefix_len, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    prefill = make_prefill_step(cfg)(params, batch)
+    step_caches = tree_map(torch.clone, caches)
+    logits, step_caches = make_decode_step(cfg)(
+        params, step_caches, batch["tokens"][:, 0],
+        torch.full((B,), 3, dtype=torch.int64, device=dev))
+    out = generate(cfg, params, caches, prompts, G)
+    outs = [prefill, logits, out.prompt_logits] + tree_leaves(step_caches)
+    return {"outs": [o.float().cpu().numpy() for o in outs],
+            "tokens": out.tokens}
+
+
+def lm_compare(tag: str, cfg, card: dict, cpu: dict, cpu_f32: dict) -> float:
+    """Card against CPU with LM_TOL; returns the largest abs difference."""
+    cdt = cfg.compute_dtype
+    atol, rtol = LM_TOL[cdt]
+    if cdt == "float32" and cfg.family in ("ssm", "hybrid"):
+        atol = rtol = LM_SSM_TOL
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(card["outs"], cpu["outs"])):
+        if g.shape != w.shape or not np.isfinite(g).all():
+            fail(f"lm_serve {tag}: output {i} has shape {g.shape} against "
+                 f"{w.shape}, or is not finite")
+        worst = max(worst, float(np.abs(g - w).max()))
+        if cdt == "bfloat16" and cfg.family == "hybrid":
+            truth = cpu_f32["outs"][i]
+            e_card, e_cpu = np.abs(g - truth), np.abs(w - truth)
+            if (e_card.mean() > 1.25 * e_cpu.mean()
+                    or e_card.max() > 1.25 * e_cpu.max()):
+                fail(f"lm_serve {tag}: output {i} is {e_card.mean()}/"
+                     f"{e_card.max()} (mean/max) from the CPU's f32 result, "
+                     f"the CPU's own bf16 {e_cpu.mean()}/{e_cpu.max()}")
+        elif not np.allclose(g, w, atol=atol, rtol=rtol):
+            fail(f"lm_serve {tag}: output {i} differs by "
+                 f"{np.abs(g - w).max()} (atol {atol}, rtol {rtol})")
+    if cdt == "float32" and (card["tokens"] != cpu["tokens"]).any():
+        fail(f"lm_serve {tag}: generated tokens differ: {card['tokens']} "
+             f"against {cpu['tokens']}")
+    return worst
+
+
+def lm_full_width(arch: str, n_expected: int, card: str, dev):
+    """`arch` at full width, weights drawn on the card: generate at LM_FULL
+    (prefill and decode times, tokens/s, median step, peak memory),
+    make_prefill_step's last-position logits against the decode loop's,
+    and one profiled decode step at the next position. Returns (the
+    record, params, caches, that step's logits)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params, tree_leaves, tree_size
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    cfg = get_config(arch)
+    B, P, G, C = LM_FULL
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(T.param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = tree_size(params)
+    if n_params != n_expected:
+        fail(f"lm_serve: {arch} has {n_params} parameters, expected "
+             f"{n_expected}")
+    caches = T.init_caches(cfg, B, C, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(1, cfg.vocab, (B, P))
+    # warm-up (cuBLAS handles, the allocator's pools), then fresh caches
+    generate(cfg, params, caches, prompts[:, :2], 2)
+    for t in tree_leaves(caches):
+        t.zero_()
+    torch.cuda.reset_peak_memory_stats()
+    gen = generate(cfg, params, caches, prompts, G)
+    peak = torch.cuda.max_memory_allocated()
+    full = make_prefill_step(cfg)(
+        params, {"tokens": torch.as_tensor(prompts, device=dev)})[:, -1]
+    if not (bool(torch.isfinite(full).all())
+            and bool(torch.isfinite(gen.prompt_logits).all())):
+        fail(f"lm_serve: non-finite logits at full width ({arch})")
+    prefill_vs_decode = float((full - gen.prompt_logits).abs().max())
+    argmax_agree = float((full.argmax(-1) == gen.prompt_logits.argmax(-1))
+                         .float().mean())
+    del full
+    decode = make_decode_step(cfg)
+    tok = torch.as_tensor(gen.tokens[:, -1], device=dev)
+    pos = torch.full((B,), P + G - 1, dtype=torch.int64, device=dev)
+    prof, (last, _) = device_profile(
+        lambda: decode(params, caches, tok, pos), f"lm_decode_step_{arch}")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    res = {"arch": cfg.name, "params": n_params, "batch": B, "prompt": P,
+           "gen": G, "cache_positions": C, "cache_bytes": cache_bytes,
+           "init_s": init_s, "prefill_ms": gen.prefill_s * 1e3,
+           "prefill_ms_per_step": gen.prefill_s * 1e3 / P,
+           "decode_s": gen.decode_s, "decode_tokens_per_s": gen.tokens_per_s,
+           "median_step_ms": gen.median_step_ms,
+           "resident_gib": resident / 2**30,
+           "max_memory_allocated_gib": peak / 2**30,
+           "prefill_vs_decode_max_abs": prefill_vs_decode,
+           "prefill_vs_decode_argmax_agree": argmax_agree,
+           "profile": prof, "card": card}
+    log("lm_serve (b) " + json.dumps(res))
+    log(f"lm_serve (b): {cfg.name} at full width ({n_params:,} parameters), "
+        f"batch {B}, prompt {P}, gen {G}, caches {cache_bytes / 1e9:.1f} GB: "
+        f"prefill {gen.prefill_s * 1e3:.1f} ms, {gen.tokens_per_s:.1f} "
+        f"tokens/s, median step {gen.median_step_ms:.2f} ms, peak "
+        f"{peak / 2**30:.2f} GiB; a profiled step: "
+        f"{prof['device_busy_ms']:.1f} ms busy, idle "
+        f"{prof['device_idle_share']:.4f}, {prof['device_ops']} launches; "
+        f"{card}")
+    return res, params, caches, last
+
+
+def phase_lm_serve(card: str, dev) -> dict:
+    """The LM serving path: (a) every REDUCED arch, cuda against cpu; (b)
+    qwen1.5-4b and falcon-mamba-7b at full width on the card; (c) one
+    full-width decode step at batch 1, card against CPU (see the module
+    docstring)."""
+    import torch
+
+    from repro_torch.configs import get_config, list_archs, reduced_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.step import make_decode_step
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    _lib.reset_launches()
+
+    # (a) every REDUCED arch, cuda against cpu, f32 compute first (the
+    # hybrid's bf16 check reads the CPU's f32 outputs)
+    small = {}
+    t0 = time.perf_counter()
+    for arch in list_archs():
+        runs = {}
+        for cdt in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(reduced_config(arch), compute_dtype=cdt)
+            runs[cdt] = lm_run(cfg, cpu)
+            small[f"{arch}/{cdt}"] = lm_compare(
+                f"{arch}/{cdt}", cfg, lm_run(cfg, dev), runs[cdt],
+                runs["float32"])
+    log("lm_serve (a) " + json.dumps({"max_abs_err": small, "card": card}))
+    log(f"lm_serve (a): all {len(list_archs())} REDUCED archs, prefill "
+        f"logits, a decode step and generate at batch {LM_SMALL[0]}, prompt "
+        f"{LM_SMALL[1]}, gen {LM_SMALL[2]} on cuda equal cpu within the "
+        f"tests' tolerances at bf16 and f32 (tokens equal at f32); "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+    # (b) qwen1.5-4b at full width, drawn on the card
+    res, params, caches, last = lm_full_width(LM_FULL_ARCH, LM_FULL_PARAMS,
+                                              card, dev)
+    decode = make_decode_step(get_config(LM_FULL_ARCH))
+    _, P, G, _ = LM_FULL
+
+    # (c) one decode step at batch 1 and the cache's first LM_CPU_CACHE
+    # positions, card against CPU, from the same weights and cache
+    t0 = time.perf_counter()
+    host_params = tree_map(lambda t: t.cpu(), params)
+    card_cache = tree_map(lambda t: t[:, :1, :LM_CPU_CACHE].clone(), caches)
+    host_cache = tree_map(lambda t: t.cpu(), card_cache)
+    del caches
+    copy_s = time.perf_counter() - t0
+    tok1 = last.argmax(-1)[:1]
+    pos1 = torch.full((1,), P + G, dtype=torch.int64, device=dev)
+    decode(params, card_cache, tok1, pos1)          # warm-up at batch 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_logits, _ = decode(params, card_cache, tok1, pos1)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    host_logits, _ = decode(host_params, host_cache, tok1.cpu(), pos1.cpu())
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    diff = (card_logits.cpu() - host_logits).abs()
+    atol, rtol = LM_TOL["bfloat16"]
+    if not torch.allclose(card_logits.cpu(), host_logits, atol=atol,
+                          rtol=rtol):
+        fail(f"lm_serve (c): card and CPU logits differ by {diff.max()}")
+    step = {"batch": 1, "cache_positions": LM_CPU_CACHE, "pos": P + G,
+            "max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+            "argmax_equal": bool(card_logits.argmax(-1).cpu()
+                                 == host_logits.argmax(-1)),
+            "card_ms": card_ms, "cpu_ms": cpu_ms, "host_copy_s": copy_s,
+            "tolerance": [atol, rtol], "card": card}
+    log("lm_serve (c) " + json.dumps(step))
+    del host_params, host_cache, params, card_cache, last
+    torch.cuda.empty_cache()
+
+    # (b) again for the state-space family: falcon-mamba-7b at full width
+    ssm_res, params, caches, last = lm_full_width(*LM_FULL_SSM, card, dev)
+    del params, caches, last
+    torch.cuda.empty_cache()
+    launches = dict(_lib.LAUNCHES)
+    if any(launches.values()):
+        fail(f"lm_serve: the LM path launched FOLD kernels: {launches}")
+    out = {"small": small, "full": res, "full_ssm": ssm_res, "step": step,
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"lm_serve: K1-K4 launched 0 times on the LM path; phase wall "
+        f"{out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1624,6 +1880,7 @@ def main() -> None:
     prog = phase_programs(main_state, pipe_batches[-1], more_batches[-1],
                           res["profile"], card, dev)
     del main_state
+    lm = phase_lm_serve(card, dev)
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -1650,6 +1907,8 @@ def main() -> None:
             shard["main"]["launches"].get(r["name"], 0)
         # the analyzed hot-path programs (phase 12) reach no kernel
         r["path_launches"]["programs"] = prog["launches"].get(r["name"], 0)
+        # the LM serving path (phase 13) reaches no kernel
+        r["path_launches"]["lm_serve"] = lm["launches"].get(r["name"], 0)
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,10 @@
 """repro_torch — FOLD's online fuzzy-dedup main path in PyTorch and CUDA.
 
 The package mirrors the JAX package `repro` module for module (`core/`,
-`kernels/`, `index/`, `index/backends/`, `data/`); each module here names
-the reference module it ports. It imports torch and numpy only.
+`kernels/`, `index/`, `index/backends/`, `data/`, `service/`, `cluster/`,
+`analysis/`, and the LM stack's `models/`, `configs/`, `train/`,
+`launch/`); each module here names the reference module it ports. It
+imports torch and numpy only.
 
 Representation of uint32 data. torch on the CPU has no uint32 `>>`, `+`,
 `min` or `%`, so every uint32 array of the reference (token ids, shingle

@@ -1,1 +1,2 @@
-"""Training-side utilities of the port; so far the checkpoint layout."""
+"""Training-side modules of the port: the checkpoint layout
+(`checkpoint`) and the loss, prefill and decode steps (`step`)."""

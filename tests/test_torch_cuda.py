@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card,
+and the port's paths on the card against the CPU (the LM stack's every
+REDUCED arch among them).
 
 Marked `gpu`: without a card every test skips with a reason (decided at
 run time, in a fixture). The file imports no JAX, so it runs on a machine
@@ -486,3 +488,71 @@ def test_cuda_program_gate_holds_on_one_spec(cuda, capsys):
     for a, b in zip(tensor_leaves(got.measure.outputs),
                     tensor_leaves(want.measure.outputs)):
         assert torch.equal(a.cpu(), b)
+
+
+# the LM stack: every REDUCED arch; tolerances of tests/test_torch_models.py
+# (f32 1e-4, the SSM families 2e-3; bf16 atol=0.15, rtol=0.05, and zamba2,
+# ill-conditioned at bf16, no further from the CPU's f32 outputs than the
+# CPU's own bf16 outputs, within 25%)
+LM_ARCHS = ["qwen1_5_4b", "stablelm_1_6b", "stablelm_12b", "gemma3_27b",
+            "zamba2_7b", "grok_1_314b", "qwen3_moe_235b", "falcon_mamba_7b",
+            "internvl2_1b", "whisper_medium"]
+
+
+def _lm_outputs(cfg, dev):
+    """Prefill logits, a decode step at pos 3 (logits, cache leaves) and
+    generate at batch 2, prompt 8, gen 8; weights from a CPU generator."""
+    from repro_torch.launch.serve import generate, init_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    rng = np.random.default_rng(0)
+    params, caches = init_model(cfg, 2, 16, dev, rng,
+                                generator=torch.Generator().manual_seed(0))
+    prompts = rng.integers(1, cfg.vocab, (2, 8))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(
+            rng.normal(size=(2, cfg.prefix_len, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    prefill = make_prefill_step(cfg)(params, batch)
+    step_caches = tree_map(torch.clone, caches)
+    logits, step_caches = make_decode_step(cfg)(
+        params, step_caches, batch["tokens"][:, 0],
+        torch.full((2,), 3, dtype=torch.int64, device=dev))
+    out = generate(cfg, params, caches, prompts, 8)
+    leaves = [prefill, logits, out.prompt_logits] + tree_leaves(step_caches)
+    return [t.float().cpu().numpy() for t in leaves], out.tokens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_serving_matches_cpu(cuda, arch, cdt):
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import _lib
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype=cdt)
+    _lib.reset_launches()
+    got, got_tokens = _lm_outputs(cfg, cuda)
+    assert not any(_lib.LAUNCHES.values())
+    want, want_tokens = _lm_outputs(cfg, torch.device("cpu"))
+    assert len(got) == len(want)
+    if cdt == "float32":
+        tol = 2e-3 if cfg.family in ("ssm", "hybrid") else 1e-4
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=tol, rtol=tol)
+        np.testing.assert_array_equal(got_tokens, want_tokens)
+    elif cfg.family == "hybrid":
+        truth, _ = _lm_outputs(dataclasses.replace(cfg, compute_dtype="float32"),
+                               torch.device("cpu"))
+        for g, w, t in zip(got, want, truth):
+            assert np.abs(g - t).mean() <= 1.25 * np.abs(w - t).mean()
+            assert np.abs(g - t).max() <= 1.25 * np.abs(w - t).max()
+    else:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=0.15, rtol=0.05)

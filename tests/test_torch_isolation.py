@@ -3,8 +3,10 @@ jax, the JAX package `repro` nor msgpack, at run time or anywhere in their
 source, and the port saves and restores its checkpoints (every ported
 backend, `hnsw_sharded` at 4 shards and its scale-out restore, the
 baselines through `repro_torch.baselines`), serves a service with
-snapshots, sharded too, and lists its program specs (`python -m
-repro_torch.analysis list`) where none of the three can be imported."""
+snapshots, sharded too, lists its program specs (`python -m
+repro_torch.analysis list`), and serves every REDUCED LM arch
+(`repro_torch.launch.serve.generate`) where none of the three can be
+imported."""
 import ast
 import os
 import subprocess
@@ -30,7 +32,12 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.core.sharded, repro_torch.index.backends.sharded, "
             "repro_torch.analysis, repro_torch.analysis.gate, "
             "repro_torch.analysis.inputs, repro_torch.analysis.__main__, "
-            "repro_torch.service.programs; "
+            "repro_torch.service.programs, repro_torch.models, "
+            "repro_torch.models.config, repro_torch.models.common, "
+            "repro_torch.models.layers, repro_torch.models.transformer, "
+            "repro_torch.models.whisper, repro_torch.configs, "
+            "repro_torch.configs.shapes, repro_torch.train.step, "
+            "repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -135,6 +142,14 @@ with contextlib.redirect_stdout(listed):
     except SystemExit as stop:
         assert stop.code == 0, stop.code
 assert len(listed.getvalue().splitlines()) == 11, listed.getvalue()
+from repro_torch.configs import list_archs, reduced_config
+from repro_torch.launch.serve import generate, init_model
+for arch in list_archs():
+    cfg = reduced_config(arch)
+    rng = np.random.default_rng(0)
+    params, caches = init_model(cfg, 2, 6, "cpu", rng)
+    out = generate(cfg, params, caches, rng.integers(1, cfg.vocab, (2, 3)), 4)
+    assert out.tokens.shape == (2, 4), arch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(bad)
