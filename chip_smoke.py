@@ -82,6 +82,25 @@ Phases (any failure exits non-zero and prints no result):
      falcon-mamba-7b at full width (7,006,326,784 parameters). (c) one
      qwen1.5-4b decode step at batch 1 on the card against the CPU, from
      the same weights and cache. K1-K4 are never launched.
+ 14. lm_train — LM training fed by FOLD dedup (repro_torch.train,
+     launch.train). (a) every REDUCED arch at f32 compute, weights drawn
+     from a CPU generator: the loss and every gradient of make_grad_fn,
+     then one make_train_step (loss, grad_norm, params, m, v), on cuda
+     against cpu, and the card's remat=True against remat=False bit for
+     bit, under deterministic algorithms. (b) qwen1.5-4b at full width
+     through launch.train's main path (ingest on the card -> PackedBatches
+     -> make_train_step -> ElasticTrainer) at batch 2 x seq 512, one
+     warm-up step then 8: launch.train's tokens/s (ingest included), median
+     step ms, the model-FLOP share (6 N tokens per step over the H100
+     SXM's dense bf16 peak; N without the embedding table), peak memory,
+     one profiled step, loss first -> last, dedup admitted/in, and K1 and
+     K2 launched by its ingest; the same at launch.train's default batch 8 x
+     seq 256 for 4 steps, unprofiled; then --service for two steps (K1
+     and K2 launched, its batches and admitted counts equal the direct
+     ingest's). (c) the elastic resume of REDUCED qwen1.5-4b on the card
+     (fail at step 6, checkpoints every 4, resume at 4) equals an
+     uninterrupted 10-step run bit for bit, under deterministic
+     algorithms (CUBLAS_WORKSPACE_CONFIG is set before CUDA starts).
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -102,6 +121,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# phase 14 (a) and (c) run under torch.use_deterministic_algorithms, which
+# needs cuBLAS's workspace fixed before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 PROFILE_DIR = os.path.join(ROOT, "build", "profile")
 
 # phase 3: batches of 512 docs fed at capacity 2**20
@@ -153,6 +175,20 @@ LM_FULL_SSM = ("falcon_mamba_7b", 7_006_326_784)   # (b) for the ssm family
 LM_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (0.15, 0.05)}
 LM_SSM_TOL = 2e-3
 
+# phase 14: LM training. (a) every REDUCED arch, batch x seq; (b)
+# qwen1.5-4b at full width through launch.train: batch, seq, steps (one
+# warm-up, then 8 timed), launch.train's default 8 x 256 for one warm-up
+# and 3 timed steps, then two steps with --service; the tolerances of
+# tests/test_torch_train_grads.py and tests/test_torch_train.py (a
+# gradient's and m's largest error as a share of the leaf's largest
+# |value| 1e-5, the SSM families 1e-3; v, quadratic in the gradient,
+# twice that; params within it where the gradient is at least 1e-3 of
+# its leaf's largest, and within one AdamW step elsewhere)
+LM_TRAIN_SMALL = (2, 32)
+LM_TRAIN_FULL = (2, 512, 9)
+LM_TRAIN_DEFAULT = (8, 256, 4)        # launch.train's default batch x seq
+LM_TRAIN_SERVICE_STEPS = 2
+LM_TRAIN_SHARE = {"float32": 1e-5, "ssm": 1e-3}
 # published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer ALU ops: a quarter of the 67 TFLOP/s float32 figure
@@ -161,6 +197,8 @@ INT32_OPS_PER_S = 67e12 / 4
 # population count issues at 16 per SM per clock (CUDA C++ Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0)
 POPC_PER_SM_CLOCK = 16
+# dense bf16 tensor-core peak, for phase 14's model-FLOP share
+BF16_FLOPS_PER_S = 989.4e12
 
 
 def log(msg: str) -> None:
@@ -1792,6 +1830,337 @@ def phase_lm_serve(card: str, dev) -> dict:
     return out
 
 
+def train_batch(vocab: int, B: int, S: int, seed: int, dev, cfg=None) -> dict:
+    """A seeded LM batch (tokens, labels, loss_mask; the VLM's patch
+    embeds and the encdec's frames when `cfg` needs them) on `dev`."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, vocab, (B, S + 1))
+    batch = {"tokens": torch.as_tensor(t[:, :-1], device=dev),
+             "labels": torch.as_tensor(t[:, 1:], device=dev),
+             "loss_mask": torch.ones((B, S), device=dev)}
+    if cfg is not None and cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.prefix_len, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    if cfg is not None and cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(B, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    return batch
+
+
+def share(got, want) -> float:
+    """Largest |got - want| as a share of want's largest |value|."""
+    want = want.float().cpu()
+    err = (got.float().cpu() - want).abs().max()
+    return float(err / want.abs().max().clamp_min(1e-30))
+
+
+def lm_train_small(arch: str, dev) -> dict:
+    """(a) for one REDUCED arch at f32 compute: gradients, then one train
+    step, on `dev` against the CPU from the same weights and batch, and
+    `dev`'s remat=True gradients against its remat=False ones."""
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models import whisper as W
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    from repro_torch.train.step import make_grad_fn
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32")
+    specs = (W.whisper_param_specs(cfg) if cfg.family == "encdec"
+             else T.param_specs(cfg))
+    host = init_params(specs, torch.Generator().manual_seed(0), cpu)
+    card = tree_map(lambda t: t.to(dev, copy=True), host)
+    B, S = LM_TRAIN_SMALL
+    bound = LM_TRAIN_SHARE["ssm" if cfg.family in ("ssm", "hybrid")
+                           else "float32"]
+    loss_c, g_c = make_grad_fn(cfg)(card, train_batch(cfg.vocab, B, S, 0,
+                                                      dev, cfg))
+    loss_h, g_h = make_grad_fn(cfg)(host, train_batch(cfg.vocab, B, S, 0,
+                                                      cpu, cfg))
+    _, g_n = make_grad_fn(cfg, remat=False)(
+        card, train_batch(cfg.vocab, B, S, 0, dev, cfg))
+    g_c, g_h, g_n = (tree_leaves(g) for g in (g_c, g_h, g_n))
+    if not all(torch.equal(a, b) for a, b in zip(g_c, g_n)):
+        fail(f"lm_train (a) {arch}: remat=True and remat=False gradients "
+             f"differ on the card")
+    rec = {"loss_rel": abs(float(loss_c) - float(loss_h)) / abs(float(loss_h)),
+           "grad_share": max(share(a, b) for a, b in zip(g_c, g_h))}
+
+    oc = OptConfig(lr=1e-3, warmup_steps=1, decay_steps=100)
+    p0 = tree_map(torch.clone, host)
+    out = {}
+    for tag, d, params in (("card", dev, card), ("host", cpu, host)):
+        out[tag] = make_train_step(cfg, oc)(
+            params, opt_init(params, oc), train_batch(cfg.vocab, B, S, 0, d,
+                                                      cfg))
+    (pc, sc, mc), (ph, sh, mh) = out["card"], out["host"]
+    lr = float(mh["lr"])
+    p_share = 0.0
+    for a, b, g, p in zip(tree_leaves(pc), tree_leaves(ph), g_h,
+                          tree_leaves(p0)):
+        err = (a.cpu() - b).abs()
+        held = g.abs() >= 1e-3 * g.abs().max()
+        p_share = max(p_share, float(err[held].max() / b.abs().max())
+                      if bool(held.any()) else 0.0)
+        if not bool((err <= 2 * lr * (1 + 0.1 * p.abs()) + 1e-7).all()):
+            fail(f"lm_train (a) {arch}: a parameter moved more than one "
+                 f"AdamW step from the CPU's")
+    rec.update(
+        step_loss_rel=abs(float(mc["loss"]) - float(mh["loss"]))
+        / abs(float(mh["loss"])),
+        grad_norm_rel=abs(float(mc["grad_norm"]) - float(mh["grad_norm"]))
+        / abs(float(mh["grad_norm"])),
+        param_share=p_share,
+        m_share=max(share(a, b) for a, b in zip(tree_leaves(sc.m),
+                                                 tree_leaves(sh.m))),
+        v_share=max(share(a, b) for a, b in zip(tree_leaves(sc.v),
+                                                 tree_leaves(sh.v))))
+    # the global norm sums every leaf's squares: its bound is the leaves'
+    checks = {"loss_rel": 1e-5, "grad_share": bound, "step_loss_rel": 1e-5,
+              "grad_norm_rel": bound, "param_share": bound, "m_share": bound,
+              "v_share": 2 * bound}
+    log(f"lm_train (a) {arch} " + json.dumps(rec))
+    for k, lim in checks.items():
+        if not rec[k] <= lim:
+            fail(f"lm_train (a) {arch}: {k} {rec[k]} above {lim}")
+    return rec
+
+
+def lm_train_resume(dev, ckpt_root: str) -> dict:
+    """(c) REDUCED qwen1.5-4b on `dev`: fail at step 6 with checkpoints
+    every 4, resume at 4 and run to 10; equal to an uninterrupted 10-step
+    run bit for bit (the caller holds deterministic algorithms on)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.train import (ElasticTrainer, OptConfig, make_train_step,
+                                   opt_init)
+    cfg = reduced_config(LM_FULL_ARCH)
+    host = init_params(T.param_specs(cfg), torch.Generator().manual_seed(0),
+                       "cpu")
+    oc = OptConfig(lr=1e-3, warmup_steps=1, decay_steps=100)
+    step = make_train_step(cfg, oc)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def trainer(name: str, every: int) -> ElasticTrainer:
+        params = tree_map(lambda t: t.to(dev, copy=True), host)
+        return ElasticTrainer(
+            step, params, opt_init(params, oc),
+            lambda i: train_batch(cfg.vocab, 4, 64, 5000 + i, dev),
+            os.path.join(ckpt_root, name), ckpt_every=every, async_save=False)
+
+    t0 = time.perf_counter()
+    tr = trainer("run", 4)
+    try:
+        tr.run(10, fail_at=6)
+        fail("lm_train (c): the injected failure did not raise")
+    except RuntimeError as err:
+        if "injected failure at step 6" not in str(err):
+            raise
+    tr2 = trainer("run", 4)
+    if not (tr2.maybe_resume() and tr2.step == 4):
+        fail(f"lm_train (c): resumed at step {tr2.step}, expected 4")
+    tr2.run(10)
+    ref = trainer("ref", 100)
+    ref.run(10)
+    for a, b in zip(tree_leaves(tr2.params) + tree_leaves(tr2.opt_state.m)
+                    + tree_leaves(tr2.opt_state.v),
+                    tree_leaves(ref.params) + tree_leaves(ref.opt_state.m)
+                    + tree_leaves(ref.opt_state.v)):
+        if not torch.equal(a, b):
+            fail("lm_train (c): the resumed run differs from the "
+                 "uninterrupted one")
+    return {"resumed_at": 4, "steps": 10, "bit_exact": True,
+            "losses": [r["loss"] for r in ref.metrics_log],
+            "s": time.perf_counter() - t0}
+
+
+def lm_train_full(B: int, S: int, steps: int, ckpt_dir: str, dev,
+                  profile: bool) -> tuple[dict, object]:
+    """(b) qwen1.5-4b at full width through launch.train's main path at
+    batch B x seq S for `steps` steps (the first a warm-up), with an
+    optional profiled step more on the last batch. Returns (its record,
+    launch.train's TrainRun)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as launch_train
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launches()
+    run = launch_train.main(
+        ["--arch", "qwen1.5-4b", "--full", "--steps", str(steps), "--batch",
+         str(B), "--seq", str(S), "--ckpt-every", "1000", "--device",
+         dev.type, "--ckpt-dir", ckpt_dir])
+    launches = dict(_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    require_launched(f"lm_train (b) {B} x {S}", launches,
+                     ["minhash", "jaccard_cached"])
+    if run.n_params != LM_FULL_PARAMS:
+        fail(f"lm_train (b): {run.n_params} parameters, expected "
+             f"{LM_FULL_PARAMS}")
+    losses = [r["loss"] for r in run.log]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"lm_train (b) {B} x {S}: losses {losses}")
+    timed = run.log[1:]
+    step_ms = [(r["dt"] - r["batch_s"]) * 1e3 for r in timed]
+    med_s = statistics.median(step_ms) / 1e3
+    tokens = B * S
+    # the embedding table is gathered, not multiplied: N counts the rest
+    n_matmul = run.n_params - run.trainer.params["embed"].numel()
+    prof = None
+    if profile:
+        tr = run.trainer
+        prof, (_, tr.opt_state, _) = device_profile(
+            lambda: tr.train_step(tr.params, tr.opt_state,
+                                  run.batches[steps - 1]),
+            f"lm_train_step_{B}x{S}")
+    res = {"arch": run.cfg.name, "params": run.n_params,
+           "matmul_params": n_matmul, "batch": B, "seq": S, "steps": steps,
+           "run_tokens_per_s": run.tokens_per_s, "run_s": run.seconds,
+           "step_ms": step_ms, "median_step_ms": med_s * 1e3,
+           "step_tokens_per_s": tokens / med_s,
+           "median_wall_ms": statistics.median(r["dt"] for r in timed) * 1e3,
+           "warmup_ms": run.log[0]["dt"] * 1e3,
+           "warmup_batch_s": run.log[0]["batch_s"],
+           "model_flop_share": 6 * n_matmul * tokens / med_s
+           / BF16_FLOPS_PER_S,
+           "max_memory_allocated_gib": peak / 2**30,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "admitted": run.ingest.total_admitted,
+           "docs_in": run.ingest.total_in, "launches": launches,
+           "profile": prof}
+    return res, run
+
+
+def phase_lm_train(card: str, dev) -> dict:
+    """The LM training path (see the module docstring): (a) every REDUCED
+    arch cuda against cpu, (b) qwen1.5-4b at full width through
+    launch.train, at batch 2 x seq 512 and at its default 8 x
+    256, (c) the elastic resume."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import list_archs
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import train as launch_train
+    t_phase = time.perf_counter()
+    ckpt_root = os.path.join(ROOT, "build", "lm_train")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident_before = torch.cuda.memory_allocated()
+
+    # (a) and (c) under deterministic algorithms: the backward of an index
+    # or a gather adds with atomics on the card
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        small = {arch: lm_train_small(arch, dev) for arch in list_archs()}
+        small_s = time.perf_counter() - t0
+        resume = lm_train_resume(dev, os.path.join(ckpt_root, "resume"))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    log("lm_train (a) " + json.dumps({"archs": small, "s": small_s,
+                                      "card": card}))
+    log(f"lm_train (a): all {len(small)} REDUCED archs, gradients and one "
+        f"train step at f32 on {dev.type} equal cpu (largest gradient share "
+        f"{max(r['grad_share'] for r in small.values()):.3g}), remat=True "
+        f"equals remat=False bit for bit; {small_s:.1f} s; {card}")
+    log("lm_train (c) " + json.dumps({**resume, "card": card}))
+
+    # (b) qwen1.5-4b at full width through launch.train's main path
+    B, S, steps = LM_TRAIN_FULL
+    res, run = lm_train_full(B, S, steps, os.path.join(ckpt_root, "full"),
+                             dev, profile=True)
+    res.update(resident_before_gib=resident_before / 2**30, card=card)
+    launches = res["launches"]
+    log("lm_train (b) " + json.dumps(res))
+    first = {k: {n: t.cpu() for n, t in run.batches[k].items()}
+             for k in range(LM_TRAIN_SERVICE_STEPS)}
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) at launch.train's default batch shape
+    Bd, Sd, steps_d = LM_TRAIN_DEFAULT
+    dflt, run = lm_train_full(Bd, Sd, steps_d,
+                              os.path.join(ckpt_root, "default"), dev,
+                              profile=False)
+    dflt["card"] = card
+    log("lm_train (b) default shape " + json.dumps(dflt))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) again with --service, two steps
+    _lib.reset_launches()
+    svc = launch_train.main(
+        ["--arch", "qwen1.5-4b", "--full", "--steps",
+         str(LM_TRAIN_SERVICE_STEPS), "--batch", str(B), "--seq", str(S),
+         "--device", dev.type, "--service", "--ckpt-every", "1000",
+         "--ckpt-dir", os.path.join(ckpt_root, "service")])
+    svc_launches = dict(_lib.LAUNCHES)
+    require_launched("lm_train (b) --service", svc_launches,
+                     ["minhash", "jaccard_cached"])
+    for k, b in first.items():
+        for n, t in b.items():
+            if not torch.equal(svc.batches[k][n].cpu(), t):
+                fail(f"lm_train (b) --service: batch {k} {n} differs from "
+                     f"the direct ingest's")
+    _, direct = launch_train.make_ingest(svc.cfg, "common_crawl", device=dev)
+    while direct.total_in < svc.ingest.total_in:
+        direct.next_clean_batch(256)
+    if (direct.total_in, direct.total_admitted) != (
+            svc.ingest.total_in, svc.ingest.total_admitted):
+        fail(f"lm_train (b) --service: admitted {svc.ingest.total_admitted}/"
+             f"{svc.ingest.total_in}, the direct ingest "
+             f"{direct.total_admitted}/{direct.total_in}")
+    svc_res = {"steps": LM_TRAIN_SERVICE_STEPS,
+               "losses": [r["loss"] for r in svc.log],
+               "admitted": svc.ingest.total_admitted,
+               "docs_in": svc.ingest.total_in, "launches": svc_launches}
+    log("lm_train (b) --service " + json.dumps(svc_res))
+    del svc, direct
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = res["profile"]
+    for r in (res, dflt):
+        log(f"lm_train (b): {r['arch']} at full width ({r['params']:,} "
+            f"parameters), batch {r['batch']} x seq {r['seq']}: the "
+            f"trainer's {r['run_tokens_per_s']:.0f} tokens/s over "
+            f"{r['steps']} steps, ingest included; median step "
+            f"{r['median_step_ms']:.1f} ms ({r['step_tokens_per_s']:.0f} "
+            f"tokens/s), model-FLOP share {r['model_flop_share']:.4f} (N "
+            f"{r['matmul_params']:,}, the embedding table left out), peak "
+            f"{r['max_memory_allocated_gib']:.2f} GiB; loss "
+            f"{r['loss_first']:.3f} -> {r['loss_last']:.3f}; dedup admitted "
+            f"{r['admitted']}/{r['docs_in']}; K1 "
+            f"{r['launches']['minhash']}, K2 "
+            f"{r['launches']['jaccard_cached']} launches; {card}")
+    log(f"lm_train (b): a profiled {B} x {S} step: "
+        f"{prof['device_busy_ms']:.1f} ms busy, idle "
+        f"{prof['device_idle_share']:.4f}, {prof['device_ops']} device "
+        f"operations; {card}")
+    out = {"small": small, "full": res, "default": dflt, "service": svc_res,
+           "resume": resume, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"lm_train: phase wall {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1881,6 +2250,7 @@ def main() -> None:
                           res["profile"], card, dev)
     del main_state
     lm = phase_lm_serve(card, dev)
+    train = phase_lm_train(card, dev)
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -1909,6 +2279,8 @@ def main() -> None:
         r["path_launches"]["programs"] = prog["launches"].get(r["name"], 0)
         # the LM serving path (phase 13) reaches no kernel
         r["path_launches"]["lm_serve"] = lm["launches"].get(r["name"], 0)
+        # the LM training path (phase 14): K1 and K2 in its ingest
+        r["path_launches"]["lm_train"] = train["launches"].get(r["name"], 0)
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

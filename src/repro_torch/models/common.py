@@ -24,11 +24,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["ParamSpec", "init_params", "abstract_params", "tree_size",
            "tree_map", "tree_leaves", "params_from_numpy",
            "caches_from_numpy", "tree_to_numpy", "tree_index",
-           "register_params", "param_tree"]
+           "register_params", "param_tree", "remat_call", "tree_unstack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +60,28 @@ def tree_leaves(tree) -> list:
 
 
 def tree_index(tree, i: int):
-    """Layer i of a stacked subtree (views, no copies)."""
+    """Layer i of a stacked subtree (views, no copies), or of its
+    `tree_unstack`: a tuple leaf's i-th tensor."""
     return tree_map(lambda a: a[i], tree)
+
+
+def tree_unstack(tree):
+    """Each stacked leaf as the tuple of its layers' views. A forward that
+    reads its layers from this gets one gradient per stacked leaf from
+    unbind's backward (one stack); reading `a[g]` of a leaf that requires
+    grad would fill and add a zero tensor the size of the whole stack in
+    every layer's select backward."""
+    return tree_map(lambda a: a.unbind(0), tree)
+
+
+def remat_call(fn: Callable, remat: bool, *args):
+    """fn(*args); with `remat`, and when a backward can follow, under
+    `torch.utils.checkpoint` (the reference's `jax.checkpoint`): the
+    backward recomputes fn's activations instead of keeping them. No
+    value of the forward or of a gradient changes."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def register_params(module: nn.Module, tree: dict) -> None:

@@ -34,7 +34,8 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (ParamSpec, init_params, param_tree,
-                                       register_params, tree_index)
+                                       register_params, remat_call,
+                                       tree_index, tree_unstack)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_attention, decode_attention,
                                        layer_norm, mamba1_scan, mamba1_step,
@@ -301,10 +302,9 @@ def _apply_block(cfg, kind, p, x, positions):
 def lm_forward(cfg: ModelConfig, params, tokens, *, prefix_embeds=None,
                remat: bool = True):
     """tokens (B, S_text) integer; prefix_embeds optional (B, P, d) for VLM.
-    Returns logits (B, S, vocab) in f32. `remat` (the reference's
-    activation checkpointing) changes no value of a forward pass; it
-    matters from the training slice on."""
-    del remat
+    Returns logits (B, S, vocab) in f32. With `remat` (the reference's
+    activation checkpointing) each group body and each remainder block
+    runs under `remat_call`, so a backward recomputes its activations."""
     x = _embed(cfg, params, tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.cdt), x], dim=1)
@@ -313,17 +313,23 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, prefix_embeds=None,
 
     pattern, n_groups, rem = cfg.layer_plan()
     body_pattern = [k for k in pattern if k != "shared_attn"]
-    for g in range(n_groups):
-        gp = tree_index(params["groups"], g)
+
+    def group_body(x, gp):
         for i, kind in enumerate(body_pattern):
             x = _apply_block(cfg, kind, gp[f"p{i}"], x, positions)
         if cfg.family == "hybrid":
             # hazard h: the one shared attention set, after every group
             x = _attn_block(cfg, params["shared_attn"], x, positions,
                             window=None, moe=False)
+        return x
+
+    groups = tree_unstack(params["groups"])
+    for g in range(n_groups):
+        x = remat_call(group_body, remat, x, tree_index(groups, g))
     for i, kind in enumerate(rem):
-        x = _apply_block(cfg, kind, tree_index(params["rem"][f"p{i}"], 0), x,
-                         positions)
+        x = remat_call(lambda x, p, kind=kind: _apply_block(cfg, kind, p, x,
+                                                            positions),
+                       remat, x, tree_index(params["rem"][f"p{i}"], 0))
 
     x = _norm(cfg, x, params["final_norm"])
     return _logits(cfg, params, x)

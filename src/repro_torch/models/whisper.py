@@ -16,7 +16,8 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (ParamSpec, init_params, param_tree,
-                                       register_params, tree_index)
+                                       register_params, remat_call,
+                                       tree_index, tree_unstack)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (chunked_attention, decode_attention,
                                        gelu, layer_norm)
@@ -117,31 +118,37 @@ def _mlp(cfg, x, p):
 
 
 def whisper_encode(cfg: ModelConfig, params, frames):
-    """frames (B, T_enc, d) precomputed frame embeddings (conv stub)."""
+    """frames (B, T_enc, d) precomputed frame embeddings (conv stub). As in
+    the reference, every encoder layer is rematerialized in a backward."""
     x = frames.to(cfg.cdt) + _sinusoids(frames.shape[1], cfg.d_model,
                                         frames.device).to(cfg.cdt)
+
+    def body(x, p):
+        return _mlp(cfg, _mha(cfg, x, x, p, "s", causal=False), p)
+
+    layers = tree_unstack(params["enc"])
     for l in range(cfg.encoder_layers):
-        p = tree_index(params["enc"], l)
-        x = _mha(cfg, x, x, p, "s", causal=False)
-        x = _mlp(cfg, x, p)
+        x = remat_call(body, True, x, tree_index(layers, l))
     return layer_norm(x, params["enc_ln_w"], params["enc_ln_b"])
 
 
 def whisper_forward(cfg: ModelConfig, params, frames, tokens,
                     *, remat: bool = True):
-    """Teacher-forced forward. Returns logits (B, S_dec, vocab) f32.
-    `remat` changes no value of a forward pass; it matters from the
-    training slice on."""
-    del remat
+    """Teacher-forced forward. Returns logits (B, S_dec, vocab) f32. With
+    `remat` each decoder layer runs under `remat_call`."""
     enc = whisper_encode(cfg, params, frames)
     B, S = tokens.shape
     # hazard b: gather, then cast
     x = params["embed"][tokens].to(cfg.cdt) + params["pos_dec"][:S].to(cfg.cdt)
-    for l in range(cfg.n_layers):
-        p = tree_index(params["dec"], l)
+
+    def body(x, p):
         x = _mha(cfg, x, x, p, "s", causal=True)
         x = _mha(cfg, x, enc, p, "x", causal=False)
-        x = _mlp(cfg, x, p)
+        return _mlp(cfg, x, p)
+
+    layers = tree_unstack(params["dec"])
+    for l in range(cfg.n_layers):
+        x = remat_call(body, remat, x, tree_index(layers, l))
     x = layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
     return (x @ params["embed"].T.to(x.dtype)).to(f32)
 

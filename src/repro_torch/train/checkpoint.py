@@ -13,13 +13,17 @@ msgpack by hand, byte for byte as `msgpack.packb` writes it (the smallest
 int and str forms, bin 8/16/32), so a checkpoint written by either
 package restores into the other and the files are identical.
 
-Leaves are numpy arrays (or numpy scalars) with the reference's dtypes:
-callers convert the port's int32-bit tensors back to uint32 first
-(`core.hnsw.state_to_numpy`). `restore` returns numpy leaves in the
-structure of a template tree.
+Leaves are numpy arrays (or numpy scalars) with the reference's dtypes,
+or torch tensors: callers convert the port's int32-bit tensors back to
+uint32 first (`core.hnsw.state_to_numpy`). A bfloat16 tensor is written
+as its 16 bits under the dtype name "bfloat16", as the reference writes
+an ml_dtypes array. `restore` returns numpy leaves in the structure of a
+template tree, and bfloat16 leaves (which numpy has no dtype for) as CPU
+torch bfloat16 tensors carrying the saved bits.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -28,6 +32,7 @@ import threading
 from typing import Any
 
 import numpy as np
+import torch
 
 __all__ = ["save", "save_async", "restore", "latest_step", "list_steps",
            "manifest", "wait_pending", "packb", "unpackb"]
@@ -65,10 +70,20 @@ def _unflatten(like, leaves: list):
     return build(like)
 
 
-def _host(leaf) -> np.ndarray:
-    if hasattr(leaf, "detach"):           # a torch tensor: its own dtype
-        leaf = leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+@dataclasses.dataclass(frozen=True)
+class _BF16:
+    """The 16 bits of a bfloat16 tensor, as an int16 numpy array."""
+    bits: np.ndarray
+
+
+def _host(leaf, copy: bool = False):
+    """A leaf on the host: numpy (copied if `copy`), or _BF16 bits."""
+    if isinstance(leaf, torch.Tensor):    # its own dtype
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return _BF16(t.view(torch.int16).numpy().copy())
+        leaf = t.numpy()
+    return np.array(leaf) if copy else np.asarray(leaf)
 
 
 # --------------------------------------------------- the msgpack subset
@@ -194,16 +209,23 @@ def unpackb(buf: bytes):
     return obj
 
 
-def _pack_array(a: np.ndarray) -> dict:
+def _pack_array(a) -> dict:
     # tobytes() writes C order whatever the layout; np.ascontiguousarray
     # would turn a 0-d leaf into shape (1,)
+    if isinstance(a, _BF16):
+        return {"dtype": "bfloat16", "shape": list(a.bits.shape),
+                "data": a.bits.tobytes()}
     a = np.asarray(a)
     return {"dtype": str(a.dtype), "shape": list(a.shape),
             "data": a.tobytes()}
 
 
-def _unpack_array(d: dict) -> np.ndarray:
-    return np.frombuffer(d["data"], dtype=d["dtype"]).reshape(d["shape"])
+def _unpack_array(d: dict):
+    if d["dtype"] == "bfloat16":
+        bits = np.frombuffer(d["data"], dtype=np.int16).reshape(d["shape"])
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return np.array(np.frombuffer(d["data"], dtype=d["dtype"])
+                    .reshape(d["shape"]))
 
 
 # ------------------------------------------------------------ the layout
@@ -216,7 +238,7 @@ def save(ckpt_dir: str, step: int, tree, *, extra: dict | None = None):
 def save_async(ckpt_dir: str, step: int, tree, *,
                extra: dict | None = None) -> threading.Thread:
     """Snapshot to host now (copies), write in a background thread."""
-    host = [np.array(_host(x)) for x in _flatten(tree)]
+    host = [_host(x, copy=True) for x in _flatten(tree)]
     t = threading.Thread(target=_write, args=(ckpt_dir, step, host,
                                               extra or {}), daemon=True)
     t.start()
@@ -269,11 +291,11 @@ def manifest(ckpt_dir: str, step: int) -> dict:
 
 def restore(ckpt_dir: str, step: int, like_tree) -> Any:
     """Restore into the structure of `like_tree`: writable host numpy
-    leaves with their saved dtypes."""
+    leaves with their saved dtypes (bfloat16 ones as CPU torch tensors)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.msgpack")
     with open(path, "rb") as f:
         packed = unpackb(f.read())
-    arrays = [np.array(_unpack_array(d)) for d in packed]
+    arrays = [_unpack_array(d) for d in packed]
     n_like = len(_flatten(like_tree))
     if len(arrays) != n_like:
         raise ValueError(f"checkpoint/model structure mismatch: "

@@ -556,3 +556,98 @@ def test_cuda_lm_serving_matches_cpu(cuda, arch, cdt):
     else:
         for g, w in zip(got, want):
             np.testing.assert_allclose(g, w, atol=0.15, rtol=0.05)
+
+
+# the training step on the card: one REDUCED qwen1.5-4b step at f32
+# compute against the CPU from the same weights and batch (the f32 bounds
+# of tests/test_torch_train_grads.py and tests/test_torch_train.py: each
+# gradient and m within 1e-5 of its leaf's largest |value|, v (quadratic
+# in the gradient) within 2e-5, the loss and grad_norm within 1e-5
+# relative, params within 1e-5 wherever the gradient is at least 1e-3 of
+# its leaf's largest and within one AdamW step elsewhere), and the card's
+# elastic resume bit-exact under deterministic algorithms
+def _train_batch(vocab, i, dev):
+    rng = np.random.default_rng(5000 + i)
+    t = rng.integers(0, vocab, (4, 65))
+    return {"tokens": torch.as_tensor(t[:, :-1], device=dev),
+            "labels": torch.as_tensor(t[:, 1:], device=dev),
+            "loss_mask": torch.ones((4, 64), device=dev)}
+
+
+def _share(got, want) -> float:
+    want = want.float().cpu()
+    err = (got.float().cpu() - want).abs().max()
+    return float(err / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+def test_cuda_lm_train_step_matches_cpu(cuda, tmp_path, monkeypatch):
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.train import (ElasticTrainer, OptConfig, make_train_step,
+                                   opt_init)
+    from repro_torch.train.step import make_grad_fn
+    cpu = torch.device("cpu")
+    base = reduced_config("qwen1_5_4b")
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    host = init_params(T.param_specs(cfg), torch.Generator().manual_seed(0),
+                       cpu)
+    card = tree_map(lambda t: t.to(cuda, copy=True), host)
+
+    loss_c, g_c = make_grad_fn(cfg)(card, _train_batch(cfg.vocab, 0, cuda))
+    loss_h, g_h = make_grad_fn(cfg)(host, _train_batch(cfg.vocab, 0, cpu))
+    assert abs(float(loss_c) - float(loss_h)) <= 1e-5 * abs(float(loss_h))
+    g_c, g_h = tree_leaves(g_c), tree_leaves(g_h)
+    for a, b in zip(g_c, g_h):
+        assert _share(a, b) <= 1e-5
+
+    oc = OptConfig(lr=1e-3, warmup_steps=1, decay_steps=100)
+    p0 = tree_map(torch.clone, host)
+    out = {}
+    for tag, dev, params in (("card", cuda, card), ("host", cpu, host)):
+        out[tag] = make_train_step(cfg, oc)(
+            params, opt_init(params, oc), _train_batch(cfg.vocab, 0, dev))
+    (pc, sc, mc), (ph, sh, mh) = out["card"], out["host"]
+    for k in ("loss", "grad_norm"):
+        assert abs(float(mc[k]) - float(mh[k])) <= 1e-5 * abs(float(mh[k]))
+    lr = float(mh["lr"])
+    for a, b, g, p in zip(tree_leaves(pc), tree_leaves(ph), g_h,
+                          tree_leaves(p0)):
+        err = (a.cpu() - b).abs()
+        held = g.abs() >= 1e-3 * g.abs().max()
+        assert bool((err[held] <= 1e-5 * b.abs().max()).all())
+        assert bool((err <= 2 * lr * (1 + 0.1 * p.abs()) + 1e-7).all())
+    for a, b in zip(tree_leaves(sc.m), tree_leaves(sh.m)):
+        assert _share(a, b) <= 1e-5
+    for a, b in zip(tree_leaves(sc.v), tree_leaves(sh.v)):
+        assert _share(a, b) <= 2e-5
+
+    # elastic resume on the card, bf16 compute as the reference's test
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        step = make_train_step(base, oc)
+
+        def trainer(d, every):
+            params = tree_map(lambda t: t.to(cuda, copy=True), host)
+            return ElasticTrainer(
+                step, params, opt_init(params, oc),
+                lambda i: _train_batch(base.vocab, i, cuda), str(d),
+                ckpt_every=every, async_save=False)
+
+        tr = trainer(tmp_path / "run", 4)
+        with pytest.raises(RuntimeError, match="injected failure at step 6"):
+            tr.run(10, fail_at=6)
+        tr2 = trainer(tmp_path / "run", 4)
+        assert tr2.maybe_resume() and tr2.step == 4
+        tr2.run(10)
+        ref = trainer(tmp_path / "ref", 100)
+        ref.run(10)
+        for a, b in zip(tree_leaves(tr2.params), tree_leaves(ref.params)):
+            assert torch.equal(a, b)
+    finally:
+        torch.use_deterministic_algorithms(before)

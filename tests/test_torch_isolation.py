@@ -4,9 +4,10 @@ source, and the port saves and restores its checkpoints (every ported
 backend, `hnsw_sharded` at 4 shards and its scale-out restore, the
 baselines through `repro_torch.baselines`), serves a service with
 snapshots, sharded too, lists its program specs (`python -m
-repro_torch.analysis list`), and serves every REDUCED LM arch
-(`repro_torch.launch.serve.generate`) where none of the three can be
-imported."""
+repro_torch.analysis list`), serves every REDUCED LM arch
+(`repro_torch.launch.serve.generate`), and trains, checkpoints and
+resumes through `python -m repro_torch.launch.train` where none of the
+three can be imported."""
 import ast
 import os
 import subprocess
@@ -37,7 +38,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.layers, repro_torch.models.transformer, "
             "repro_torch.models.whisper, repro_torch.configs, "
             "repro_torch.configs.shapes, repro_torch.train.step, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.train, "
+            "repro_torch.train.optimizer, repro_torch.train.ft, "
+            "repro_torch.launch.train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -71,6 +74,10 @@ class Block:
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import numpy as np
+import torch
+# one intra-op thread: the parallel test workers share the cores, and
+# oversubscribed threads slow this run past its timeout
+torch.set_num_threads(1)
 from repro_torch.core.dedup import FoldConfig
 from repro_torch.data.corpus import DATASET_PRESETS, SyntheticCorpus
 from repro_torch.index import make_pipeline
@@ -134,6 +141,7 @@ assert len(svc.results(ticket)) == 20
 assert svc.pipeline.backend.name == "hnsw_sharded"
 assert svc.index_manager.committed_steps() == (1, 2)
 import contextlib, io, runpy
+out_dir = sys.argv[1]
 sys.argv = ["repro_torch.analysis", "list"]
 listed = io.StringIO()
 with contextlib.redirect_stdout(listed):
@@ -150,6 +158,16 @@ for arch in list_archs():
     params, caches = init_model(cfg, 2, 6, "cpu", rng)
     out = generate(cfg, params, caches, rng.integers(1, cfg.vocab, (2, 3)), 4)
     assert out.tokens.shape == (2, 4), arch
+from repro_torch.launch.train import main as train_main
+run_dir = out_dir + "/train"
+run = train_main(["--device", "cpu", "--steps", "2", "--batch", "2",
+                  "--seq", "16", "--ckpt-every", "1", "--dataset", "lm1b",
+                  "--ckpt-dir", run_dir])
+assert len(run.log) == 2
+again = train_main(["--device", "cpu", "--steps", "3", "--batch", "2",
+                    "--seq", "16", "--dataset", "lm1b",
+                    "--ckpt-dir", run_dir])
+assert again.resumed_from == 2 and int(again.trainer.opt_state.step) == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
 print(bad)
@@ -166,3 +184,4 @@ def test_checkpoints_round_trip_without_jax_or_msgpack(tmp_path):
     assert (tmp_path / "service" / "step_00000002" / "MANIFEST.json").exists()
     assert (tmp_path / "hnsw_sharded" / "step_00000001"
             / "arrays.msgpack").exists()
+    assert (tmp_path / "train" / "step_00000002" / "arrays.msgpack").exists()

@@ -1,0 +1,177 @@
+"""The gradients of the port's loss (`repro_torch.train.step.make_grad_fn`,
+torch.autograd over the ported forward) held against `jax.grad` of the
+reference's `make_loss_fn`, for every REDUCED arch, on the CPU.
+
+Weights are the reference's `init_params(..., PRNGKey(0))` carried over
+with `params_from_numpy`; the batch (2 x 32) comes from
+`np.random.default_rng(0)`. A gradient's error is the largest difference
+in a leaf as a share of that leaf's largest |grad| in the reference.
+
+Bounds, a little above what was measured on the CPU:
+  * f32 compute, against the reference jitted: 1e-5 (measured at most
+    2.8e-6); the state-space and hybrid families 1e-3 (their scans round
+    in another order; zamba2 measured 1.4e-4). The loss within 1e-5
+    relative.
+  * bf16 compute, against the reference run op by op (`jax.disable_jit()`;
+    compiled, XLA keeps f32 between fused bf16 ops): 5e-2 for the dense,
+    SSM, VLM and encdec families (measured at most 3.0e-2, spread over
+    every leaf: bf16 noise, not one op), the loss within 1e-3 relative.
+    The MoE archs are held by the loss only (1e-3; measured 3.6e-4):
+    expert routes flip between the two. zamba2 (hybrid) is
+    ill-conditioned at bf16 (the reference's own bf16 gradients lie up to
+    2.4 of a leaf's largest |grad| from its f32 ones), so it is held to
+    the reference's accuracy: over its leaves, the mean of each leaf's
+    mean and of its largest distance from the reference's f32 gradient
+    (as a share of the leaf's largest |grad|) at most 1.25 times the
+    reference's own bf16 distances (measured 1.00 and 1.11), and its
+    loss within 5e-3 relative (measured 1.7e-3).
+  * `remat=True` equals `remat=False` bit for bit, gradients and loss.
+
+The embedding's gradient at bf16: the port gathers rows and then casts
+(hazard b), the reference casts the table and then gathers, so repeated
+tokens are summed in f32 by the port and in bf16 by the reference.
+`test_embed_grad_with_repeated_tokens_at_bf16` draws the tokens from 16
+ids (each row sum then adds about 4 tokens) and holds that leaf to the
+same 5e-2 (measured 1.0e-2).
+
+The bf16 checks are split over tests/test_torch_train_grads_bf16.py,
+tests/test_torch_train_grads_moe_ssm.py and
+tests/test_torch_train_grads_hybrid.py, to keep each file's run short.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import list_archs
+from repro.configs import reduced_config as jax_reduced_config
+from repro.models import transformer as JT
+from repro.models import whisper as JW
+from repro.models.common import init_params as jax_init_params
+from repro.train.step import make_loss_fn as jax_make_loss_fn
+from repro_torch.configs import reduced_config
+from repro_torch.models.common import params_from_numpy, tree_leaves
+from repro_torch.train.step import make_grad_fn
+
+torch.set_num_threads(2)
+
+ARCHS = list_archs()
+B, S = 2, 32
+F32_SHARE, SSM_F32_SHARE, F32_LOSS = 1e-5, 1e-3, 1e-5
+BF16_SHARE, BF16_LOSS = 5e-2, 1e-3
+HYBRID_RATIO, HYBRID_LOSS = 1.25, 5e-3
+BF16_DENSE = ("qwen1_5_4b", "stablelm_1_6b", "stablelm_12b", "gemma3_27b",
+              "internvl2_1b", "whisper_medium")
+BF16_MOE_SSM = ("grok_1_314b", "qwen3_moe_235b", "falcon_mamba_7b")
+
+
+@functools.cache
+def _jax_params(arch: str):
+    cfg = jax_reduced_config(arch)
+    specs = (JW.whisper_param_specs(cfg) if cfg.family == "encdec"
+             else JT.param_specs(cfg))
+    return jax.tree.map(np.asarray,
+                        jax_init_params(specs, jax.random.PRNGKey(0)))
+
+
+def _batch(arch: str, ids: int | None = None) -> dict:
+    cfg = jax_reduced_config(arch)
+    rng = np.random.default_rng(0)
+    batch = {}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.normal(
+            size=(B, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    t = rng.integers(0, ids or cfg.vocab, (B, S + 1))
+    batch.update(tokens=t[:, :-1].astype(np.int32),
+                 labels=t[:, 1:].astype(np.int32),
+                 loss_mask=np.ones((B, S), np.float32))
+    return batch
+
+
+@functools.cache
+def jax_grads(arch: str, cdt: str, ids: int | None = None):
+    """The reference's (loss, gradient leaves as f32 numpy): jitted at
+    f32, op by op at bf16."""
+    cfg = dataclasses.replace(jax_reduced_config(arch), compute_dtype=cdt)
+    fn = jax.value_and_grad(lambda p, b: jax_make_loss_fn(cfg)(p, b)[0])
+    batch = {k: jnp.asarray(v) for k, v in _batch(arch, ids).items()}
+    if cdt == "bfloat16":
+        with jax.disable_jit():
+            loss, grads = fn(_jax_params(arch), batch)
+    else:
+        loss, grads = jax.jit(fn)(_jax_params(arch), batch)
+    return float(loss), [np.asarray(g, np.float32)
+                         for g in jax.tree.leaves(grads)]
+
+
+def port_grads(arch: str, cdt: str, *, remat: bool = True,
+               ids: int | None = None):
+    """The port's (loss tensor, gradient leaves in the reference's leaf
+    order)."""
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype=cdt)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(arch, ids).items()}
+    loss, grads = make_grad_fn(cfg, remat=remat)(
+        params_from_numpy(_jax_params(arch)), batch)
+    return loss, tree_leaves(grads)
+
+
+def _share(got: torch.Tensor, want: np.ndarray) -> float:
+    err = np.abs(got.float().numpy() - want).max()
+    return float(err / max(np.abs(want).max(), 1e-30))
+
+
+def check_grads(arch: str, cdt: str) -> None:
+    family = jax_reduced_config(arch).family
+    want_loss, want = jax_grads(arch, cdt)
+    loss, got = port_grads(arch, cdt)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+    rel = abs(float(loss) - want_loss) / abs(want_loss)
+    if cdt == "float32":
+        assert rel <= F32_LOSS, rel
+        bound = SSM_F32_SHARE if family in ("ssm", "hybrid") else F32_SHARE
+        shares = [_share(g, w) for g, w in zip(got, want)]
+        assert max(shares) <= bound, max(shares)
+    elif family == "moe":
+        assert rel <= BF16_LOSS, rel
+    elif family == "hybrid":
+        assert rel <= HYBRID_LOSS, rel
+        _, truth = jax_grads(arch, "float32")
+        port, ref = [], []
+        for g, w, t in zip(got, want, truth):
+            scale = max(np.abs(t).max(), 1e-30)
+            e_port = np.abs(g.float().numpy() - t) / scale
+            e_ref = np.abs(w - t) / scale
+            port.append((e_port.mean(), e_port.max()))
+            ref.append((e_ref.mean(), e_ref.max()))
+        port, ref = np.mean(port, axis=0), np.mean(ref, axis=0)
+        assert (port <= HYBRID_RATIO * ref).all(), (port, ref)
+    else:
+        assert rel <= BF16_LOSS, rel
+        shares = [_share(g, w) for g, w in zip(got, want)]
+        assert max(shares) <= BF16_SHARE, max(shares)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_grads_match_jax_at_f32(arch):
+    check_grads(arch, "float32")
+
+
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_changes_no_gradient(arch, cdt):
+    loss_r, got_r = port_grads(arch, cdt, remat=True)
+    loss, got = port_grads(arch, cdt, remat=False)
+    assert torch.equal(loss_r, loss)
+    for a, b in zip(got_r, got):
+        assert torch.equal(a, b)
