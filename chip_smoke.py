@@ -101,6 +101,18 @@ Phases (any failure exits non-zero and prints no result):
      (fail at step 6, checkpoints every 4, resume at 4) equals an
      uninterrupted 10-step run bit for bit, under deterministic
      algorithms (CUBLAS_WORKSPACE_CONFIG is set before CUDA starts).
+ 15. lm_train_mesh — meshed training through repro_torch.dist on a
+     one-rank NCCL group and a (1, 1) ("data", "model") cuda mesh, so
+     params and moments are DTensors. (a) qwen1.5-4b at full width through
+     `launch.train --mesh 1,1` at phase 14 (b)'s batch 2 x seq 512 and 9
+     steps (its lr schedule; one warm-up): each step's loss and grad norm
+     against phase 14 (b)'s on the same batches (loss within 1e-3, grad
+     norm within 1e-3 of its value), the median step, tokens/s, peak
+     memory, one profiled step (device operations, idle share, NCCL
+     kernels in it) beside phase 14 (b)'s, and K1 and K2 launched by its
+     ingest. (b) REDUCED qwen1.5-4b and grok-1-314b, one train step each
+     on the (1, 1) mesh and unmeshed on the card, from the same weights
+     and batch: loss within 1e-3, params within 2e-3.
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -576,6 +588,8 @@ def device_profile(fn, name: str) -> tuple[dict, object]:
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "device_ops": device_op_calls(events)[1],
             "device_events": sum(c for c, _ in dev.values()),
+            "nccl_kernels": sum(c for k, (c, _) in dev.items()
+                                if "nccl" in k.lower()),
             "top_device": top(dev, 6), "top_runtime": top(runtime, 4)}, out
 
 
@@ -1985,10 +1999,11 @@ def lm_train_resume(dev, ckpt_root: str) -> dict:
 
 
 def lm_train_full(B: int, S: int, steps: int, ckpt_dir: str, dev,
-                  profile: bool) -> tuple[dict, object]:
+                  profile: bool, extra: tuple = ()) -> tuple[dict, object]:
     """(b) qwen1.5-4b at full width through launch.train's main path at
     batch B x seq S for `steps` steps (the first a warm-up), with an
-    optional profiled step more on the last batch. Returns (its record,
+    optional profiled step more on the last batch; `extra` arguments go
+    to launch.train (phase 15's --mesh). Returns (its record,
     launch.train's TrainRun)."""
     import shutil
 
@@ -2002,7 +2017,7 @@ def lm_train_full(B: int, S: int, steps: int, ckpt_dir: str, dev,
     run = launch_train.main(
         ["--arch", "qwen1.5-4b", "--full", "--steps", str(steps), "--batch",
          str(B), "--seq", str(S), "--ckpt-every", "1000", "--device",
-         dev.type, "--ckpt-dir", ckpt_dir])
+         dev.type, "--ckpt-dir", ckpt_dir, *extra])
     launches = dict(_lib.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     require_launched(f"lm_train (b) {B} x {S}", launches,
@@ -2038,6 +2053,7 @@ def lm_train_full(B: int, S: int, steps: int, ckpt_dir: str, dev,
            / BF16_FLOPS_PER_S,
            "max_memory_allocated_gib": peak / 2**30,
            "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "grad_norms": [r["grad_norm"] for r in run.log],
            "admitted": run.ingest.total_admitted,
            "docs_in": run.ingest.total_in, "launches": launches,
            "profile": prof}
@@ -2161,6 +2177,143 @@ def phase_lm_train(card: str, dev) -> dict:
     return out
 
 
+def lm_mesh_small(arch: str, mesh, dev) -> dict:
+    """(b) of phase 15 for one REDUCED arch: one train step on the (1, 1)
+    mesh and one unmeshed on `dev`, from the same weights and batch."""
+    import torch
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.dist import act
+    from repro_torch.dist.sharding import batch_pspecs, distribute, make_plan
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import init_params, tree_leaves, tree_map
+    from repro_torch.train import OptConfig, make_train_step, opt_init
+    B, S = LM_TRAIN_SMALL
+    cfg = reduced_config(arch)
+    specs = T.param_specs(cfg)
+    params = init_params(specs, torch.Generator().manual_seed(0), dev)
+    batch = train_batch(cfg.vocab, B, S, seed=15, dev=dev)
+    oc = OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    step = make_train_step(cfg, oc)
+    plain = tree_map(torch.clone, params)
+    p1, _, m1 = step(plain, opt_init(plain, oc), batch)
+    meshed = distribute(params, make_plan(cfg, mesh).params(specs), mesh,
+                        src_data_rank=None)
+    mbatch = distribute(batch, batch_pspecs(cfg, mesh, "train", B), mesh,
+                        src_data_rank=None)
+    act.set_mesh(mesh)
+    t0 = time.perf_counter()
+    try:
+        p2, o2, m2 = step(meshed, opt_init(meshed, oc), mbatch)
+        float(m2["loss"])                   # the sync
+    finally:
+        act.clear()
+    step_s = time.perf_counter() - t0
+    if not all(type(t).__name__ == "DTensor"
+               for t in tree_leaves(p2) + tree_leaves(o2.m)):
+        fail(f"lm_train_mesh (b) {arch}: params or moments left the mesh")
+    loss_diff = abs(float(m1["loss"]) - float(m2["loss"]))
+    p_diff = max(float((a.full_tensor() - b).abs().max())
+                 for a, b in zip(tree_leaves(p2), tree_leaves(p1)))
+    if not (loss_diff < 1e-3 and p_diff < 2e-3):
+        fail(f"lm_train_mesh (b) {arch}: meshed against unmeshed loss "
+             f"{loss_diff}, params {p_diff}")
+    return {"loss": float(m2["loss"]), "loss_diff": loss_diff,
+            "param_diff": p_diff, "first_meshed_step_s": step_s}
+
+
+def phase_lm_train_mesh(card: str, dev, full14: dict) -> dict:
+    """Meshed training on the card (see the module docstring): (a)
+    qwen1.5-4b at full width through `launch.train --mesh 1,1` against
+    phase 14 (b)'s run `full14`, (b) REDUCED qwen1.5-4b and grok-1-314b
+    meshed against unmeshed."""
+    import gc
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import act
+    from repro_torch.models.common import tree_leaves
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    # the group outlives launch.train's main, for the profiled step and (b)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        B, S, steps = LM_TRAIN_FULL
+        res, run = lm_train_full(
+            B, S, steps, os.path.join(ROOT, "build", "lm_train", "mesh"),
+            dev, profile=False, extra=("--mesh", "1,1"))
+        tr = run.trainer
+        if run.mesh is None or tuple(run.mesh.shape) != (1, 1) or not all(
+                type(t).__name__ == "DTensor" for t in
+                tree_leaves(tr.params) + tree_leaves(tr.opt_state.m)):
+            fail("lm_train_mesh (a): params and moments are not DTensors "
+                 "on a (1, 1) mesh")
+        loss_diff = max(abs(a - b) for a, b in
+                        zip(res["losses"], full14["losses"]))
+        gn_diff = max(abs(a - b) / b for a, b in
+                      zip(res["grad_norms"], full14["grad_norms"]))
+        if not (loss_diff < 1e-3 and gn_diff < 1e-3):
+            fail(f"lm_train_mesh (a): losses {res['losses']} and grad norms "
+                 f"{res['grad_norms']} against phase 14 (b)'s "
+                 f"{full14['losses']}, {full14['grad_norms']}")
+        act.set_mesh(run.mesh)
+        try:
+            prof, (_, tr.opt_state, _) = device_profile(
+                lambda: tr.train_step(tr.params, tr.opt_state,
+                                      run.batches[steps - 1]),
+                f"lm_train_mesh_step_{B}x{S}")
+        finally:
+            act.clear()
+        res.update(profile=prof, largest_loss_diff=loss_diff,
+                   largest_grad_norm_rel_diff=gn_diff, card=card)
+        log("lm_train_mesh (a) " + json.dumps(res))
+        launches = res["launches"]
+        mesh = run.mesh
+        del run, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        small = {arch: lm_mesh_small(arch, mesh, dev)
+                 for arch in ("qwen1.5-4b", "grok-1-314b")}
+        log("lm_train_mesh (b) " + json.dumps({"archs": small,
+                                               "card": card}))
+    finally:
+        dist.destroy_process_group()
+    p14 = full14["profile"]
+    log(f"lm_train_mesh (a): {res['arch']} at full width through "
+        f"launch.train --mesh 1,1 (DTensor params and moments), batch {B} x "
+        f"seq {S}: median step {res['median_step_ms']:.1f} ms "
+        f"({res['step_tokens_per_s']:.0f} tokens/s; phase 14 (b) "
+        f"{full14['median_step_ms']:.1f} ms, "
+        f"{full14['step_tokens_per_s']:.0f} tokens/s), the trainer's "
+        f"{res['run_tokens_per_s']:.0f} tokens/s with ingest (phase 14 (b) "
+        f"{full14['run_tokens_per_s']:.0f}), peak "
+        f"{res['max_memory_allocated_gib']:.2f} GiB (phase 14 (b) "
+        f"{full14['max_memory_allocated_gib']:.2f}); profiled step: "
+        f"{prof['device_ops']} device operations, idle "
+        f"{prof['device_idle_share']:.4f} (phase 14 (b) {p14['device_ops']}, "
+        f"{p14['device_idle_share']:.4f}), {prof['nccl_kernels']} NCCL "
+        f"kernels" + (" (a one-rank mesh reduces nothing)"
+                      if prof["nccl_kernels"] == 0 else "")
+        + f"; largest loss difference from phase 14 (b) {loss_diff:.3g}, "
+        f"grad norm {gn_diff:.3g} relative; K1 {launches['minhash']}, K2 "
+        f"{launches['jaccard_cached']} launches; {card}")
+    log("lm_train_mesh (b): " + "; ".join(
+        f"{a} meshed against unmeshed: loss {r['loss_diff']:.3g}, params "
+        f"{r['param_diff']:.3g}" for a, r in small.items()) + f"; {card}")
+    out = {"full": res, "small": small, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"lm_train_mesh: phase wall {out['phase_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2251,6 +2404,7 @@ def main() -> None:
     del main_state
     lm = phase_lm_serve(card, dev)
     train = phase_lm_train(card, dev)
+    mesh = phase_lm_train_mesh(card, dev, train["full"])
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -2281,6 +2435,9 @@ def main() -> None:
         r["path_launches"]["lm_serve"] = lm["launches"].get(r["name"], 0)
         # the LM training path (phase 14): K1 and K2 in its ingest
         r["path_launches"]["lm_train"] = train["launches"].get(r["name"], 0)
+        # meshed training (phase 15): K1 and K2 in its ingest
+        r["path_launches"]["lm_train_mesh"] = mesh["launches"].get(
+            r["name"], 0)
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

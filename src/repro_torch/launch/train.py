@@ -12,36 +12,52 @@ downloaded.
       --steps 50 --batch 8 --seq 256 --ckpt-dir runs/run1 [--device cpu]
 
 With no `--device` it runs on the card and raises without one. The
-default is a REDUCED config; `--full` takes the full one. `--mesh` (the
-reference's data/model mesh) needs the port's `dist/` on several cards,
-which does not exist yet, and is refused.
+default is a REDUCED config; `--full` takes the full one.
+
+`--mesh D,M` (or `P,D,M`, or `D`) trains on a ("data", "model") mesh
+(("pod", "data", "model") with three dims) through `repro_torch.dist`:
+params and moments are DTensors placed by `make_plan`, the batch by
+`batch_pspecs`, and the activations anchored as in the reference. torch
+runs one process per rank: a mesh of several ranks runs under `torchrun`
+(NCCL on the card, gloo with `--device cpu`), and the mesh's size must
+equal `WORLD_SIZE`; a one-rank mesh starts its own one-rank group.
+Every rank draws the same seeded params and keeps its shard; rank 0
+alone runs the FOLD ingest and scatters each batch, so the dedup
+verdicts are those of one ingest; checkpoints are gathered and written
+by rank 0 in the one-device layout.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+      --mesh 2,2 --steps 2 --batch 4 --seq 32
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
+import socket
 import tempfile
 import time
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.dedup import FoldConfig
 from repro_torch.data import (DATASET_PRESETS, DedupIngest, PackedBatches,
                               SyntheticCorpus)
 from repro_torch.device import resolve_device
+from repro_torch.dist import act
+from repro_torch.dist.sharding import batch_pspecs, distribute, make_plan
+from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import transformer as T
 from repro_torch.models.common import init_params, tree_size
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import (ElasticTrainer, OptConfig, make_train_step,
                                opt_init)
 
-__all__ = ["TrainRun", "make_ingest", "make_batch_fn", "main"]
-
-MESH_REFUSED = ("--mesh needs the port's dist/ (shards on several cards), "
-                "which is ROADMAP.md queue 1, item 9; the port trains on "
-                "one device")
+__all__ = ["TrainRun", "make_ingest", "make_batch_fn", "make_mesh", "main"]
 
 
 def make_ingest(cfg: ModelConfig, dataset: str, *, dedup: bool = True,
@@ -104,6 +120,61 @@ def make_batch_fn(src, ingest, batch: int, seq: int, device):
     return make_batch
 
 
+def make_mesh(spec: str, device: torch.device) -> tuple[DeviceMesh, bool]:
+    """(mesh, started): the `--mesh` shape over the default process
+    group, which is started here when none is up (`started`): from
+    torchrun's environment, or as a one-rank group on a free localhost
+    port. NCCL on the card, gloo on the CPU; nothing falls back."""
+    shape = tuple(int(x) for x in spec.split(","))
+    axes = mesh_axes(len(shape))
+    started = not dist.is_initialized()
+    if started:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if "MASTER_ADDR" in os.environ:
+            dist.init_process_group(backend, world_size=world,
+                                    rank=int(os.environ["RANK"]))
+        else:
+            if world != 1:
+                raise RuntimeError("a mesh of several ranks runs under "
+                                   "torchrun")
+            with socket.socket() as sk:
+                sk.bind(("localhost", 0))
+                port = sk.getsockname()[1]
+            dist.init_process_group(backend, world_size=1, rank=0,
+                                    init_method=f"tcp://localhost:{port}")
+    if math.prod(shape) != dist.get_world_size():
+        raise ValueError(f"--mesh {spec} has {math.prod(shape)} ranks; the "
+                         f"process group has {dist.get_world_size()}")
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    return init_device_mesh(device.type, shape, mesh_dim_names=axes), started
+
+
+def _meshed_batches(make_batch, cfg: ModelConfig, mesh: DeviceMesh,
+                    batch: int, seq: int, device):
+    """make_batch(step) for a meshed run: rank 0 packs the batch from its
+    ingest; every rank receives its block (`batch_pspecs`), scattered from
+    rank 0."""
+    specs = batch_pspecs(cfg, mesh, "train", batch)
+    dtypes = {"tokens": torch.int64, "labels": torch.int64,
+              "loss_mask": torch.float32}
+    cache: dict[int, dict] = {}
+
+    def meshed(step: int) -> dict:
+        if step not in cache:
+            if dist.get_rank() == 0:
+                full = make_batch(step)
+            else:
+                full = {k: torch.empty((batch, seq), dtype=dt, device=device)
+                        for k, dt in dtypes.items()}
+            cache[step] = distribute(full, specs, mesh, src_data_rank=0)
+        return cache[step]
+
+    meshed.cache = cache
+    return meshed
+
+
 @dataclasses.dataclass
 class TrainRun:
     cfg: ModelConfig
@@ -115,6 +186,7 @@ class TrainRun:
     batches: dict              # step -> the batch it trained on
     n_params: int
     resumed_from: int | None
+    mesh: DeviceMesh | None    # the --mesh run's mesh, else None
 
 
 def main(argv: list[str] | None = None) -> TrainRun:
@@ -138,34 +210,49 @@ def main(argv: list[str] | None = None) -> TrainRun:
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--mesh", default="", help="refused: see ROADMAP.md "
-                    "queue 1, item 9")
+    ap.add_argument("--mesh", default="",
+                    help="e.g. 4,2 for (data,model), 2,4,2 for "
+                         "(pod,data,model); several ranks need torchrun")
     ap.add_argument("--device", default=None,
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error(MESH_REFUSED)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch) if args.full else reduced_config(args.arch)
     if cfg.family == "encdec":
         ap.error("use whisper example for encdec")
-    print(f"arch={cfg.name} family={cfg.family} reduced={not args.full} "
-          f"device={device}")
+    mesh, started = (make_mesh(args.mesh, device) if args.mesh
+                     else (None, False))
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    say(f"arch={cfg.name} family={cfg.family} reduced={not args.full} "
+        f"device={device}" + (f" mesh={args.mesh}" if mesh else ""))
 
-    # ---- data: FOLD-deduplicated ingestion ------------------------------
-    src, ingest = make_ingest(cfg, args.dataset, dedup=not args.no_dedup,
-                              service=args.service,
-                              backend=args.dedup_backend, device=device)
-    make_batch = make_batch_fn(src, ingest, args.batch, args.seq, device)
+    # ---- data: FOLD-deduplicated ingestion (rank 0 alone on a mesh) ------
+    ingest = None
+    make_batch = None
+    if lead:
+        src, ingest = make_ingest(cfg, args.dataset, dedup=not args.no_dedup,
+                                  service=args.service,
+                                  backend=args.dedup_backend, device=device)
+        make_batch = make_batch_fn(src, ingest, args.batch, args.seq, device)
 
     # ---- model + optimizer ----------------------------------------------
-    params = init_params(T.param_specs(cfg),
-                         torch.Generator(device).manual_seed(0), device)
+    specs = T.param_specs(cfg)
+    params = init_params(specs, torch.Generator(device).manual_seed(0),
+                         device)
     n_params = tree_size(params)
-    print(f"params: {n_params/1e6:.1f} M")
+    say(f"params: {n_params/1e6:.1f} M")
+    if mesh is not None:
+        # every rank drew the same params: each keeps its own block
+        params = distribute(params, make_plan(cfg, mesh).params(specs), mesh,
+                            src_data_rank=None)
+        make_batch = _meshed_batches(make_batch, cfg, mesh, args.batch,
+                                     args.seq, device)
+        act.set_mesh(mesh)
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5 + 1),
                         decay_steps=args.steps)
+    # moments placed as the params (make_plan's fsdp=True placements)
     opt_state = opt_init(params, opt_cfg)
     step_fn = make_train_step(cfg, opt_cfg, grad_accum=args.grad_accum)
 
@@ -174,21 +261,27 @@ def main(argv: list[str] | None = None) -> TrainRun:
                                              f"fold_{cfg.name}")
     tr = ElasticTrainer(step_fn, params, opt_state, make_batch, ckpt_dir,
                         ckpt_every=args.ckpt_every)
-    resumed = None
-    if tr.maybe_resume():
-        resumed = tr.step
-        print(f"resumed from step {tr.step}")
-    t0 = time.perf_counter()
-    log = tr.run(args.steps)
-    dt = time.perf_counter() - t0
+    try:
+        resumed = None
+        if tr.maybe_resume():
+            resumed = tr.step
+            say(f"resumed from step {tr.step}")
+        t0 = time.perf_counter()
+        log = tr.run(args.steps)
+        dt = time.perf_counter() - t0
+    finally:
+        if mesh is not None:
+            act.clear()
+        if started:
+            dist.destroy_process_group()
     tok_s = args.steps * args.batch * args.seq / dt
-    print(f"done: {args.steps} steps in {dt:.1f}s ({tok_s:.0f} tok/s)")
-    print("loss first->last:",
-          round(log[0]["loss"], 3), "->", round(log[-1]["loss"], 3))
+    say(f"done: {args.steps} steps in {dt:.1f}s ({tok_s:.0f} tok/s)")
+    say("loss first->last:",
+        round(log[0]["loss"], 3), "->", round(log[-1]["loss"], 3))
     if ingest is not None:
-        print(f"dedup: admitted {ingest.total_admitted}/{ingest.total_in} docs")
+        say(f"dedup: admitted {ingest.total_admitted}/{ingest.total_in} docs")
     return TrainRun(cfg, tr, log, dt, tok_s, ingest, make_batch.cache,
-                    n_params, resumed)
+                    n_params, resumed, mesh)
 
 
 if __name__ == "__main__":

@@ -9,11 +9,12 @@ Every parameter is declared as a ParamSpec with *logical* axis names
                                            counted without memory)
   params_from_numpy(tree)               -> the reference's numpy tree as the
                                            port's, name for name
+  param_pspecs(specs, rules)            -> PartitionSpec tree (placements
+                                           through repro_torch.dist)
 
 Trees are nested dicts whose leaves are tensors, exactly the reference's
 layout (stacked `groups`/`rem` leaves, `shared_attn`). Leaves are visited
 in sorted-key order, the order `jax.tree.flatten` gives a dict.
-`param_pspecs` waits for the port's `dist/` (shards on several cards).
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-__all__ = ["ParamSpec", "init_params", "abstract_params", "tree_size",
-           "tree_map", "tree_leaves", "params_from_numpy",
+__all__ = ["ParamSpec", "init_params", "abstract_params", "param_pspecs",
+           "tree_size", "tree_map", "tree_leaves", "params_from_numpy",
            "caches_from_numpy", "tree_to_numpy", "tree_index",
            "register_params", "param_tree", "remat_call", "tree_unstack"]
 
@@ -145,6 +146,39 @@ def abstract_params(specs) -> Any:
     """Shapes and dtypes only, as tensors on the meta device."""
     return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
                                           device="meta"), specs)
+
+
+def param_pspecs(specs, rules: dict[str, str | tuple | None]) -> Any:
+    """Logical axes -> PartitionSpec via the rules table.
+
+    A rule value may be a mesh axis name, a tuple of mesh axes, or None.
+    Unlisted logical axes are unsharded. Mesh axes already used by an
+    earlier dim of the same param are dropped (a spec never repeats an
+    axis). No divisibility filter, as in the reference: that is
+    `repro_torch.dist.sharding.ShardingPlan`'s."""
+    from repro_torch.dist.sharding import PartitionSpec as P
+
+    def one(s: ParamSpec):
+        used: set[str] = set()
+        parts: list[Any] = []
+        for name in s.axes:
+            rule = rules.get(name) if name is not None else None
+            if rule is None:
+                parts.append(None)
+                continue
+            axes = rule if isinstance(rule, tuple) else (rule,)
+            axes = tuple(a for a in axes if a not in used)
+            if not axes:
+                parts.append(None)
+            elif len(axes) == 1:
+                parts.append(axes[0])
+                used.add(axes[0])
+            else:
+                parts.append(axes)
+                used.update(axes)
+        return P(*parts)
+
+    return tree_map(one, specs)
 
 
 def tree_size(tree) -> int:

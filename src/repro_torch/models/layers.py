@@ -19,9 +19,14 @@ is exact in f32) and the result cast back only where the reference casts.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist import act
 
 __all__ = [
     "rms_norm", "layer_norm", "rope", "chunked_attention", "decode_attention",
@@ -87,6 +92,13 @@ def chunked_attention(q, k, v, *, causal: bool = True, window: int | None = None
                       q_chunk: int = 512, kv_chunk: int = 512):
     """Flash-style attention. q (B,S,H,dh); k,v (B,T,Hkv,dh); GQA via
     head-group reshape. Returns (B, S, H, dh) in q's dtype."""
+    if isinstance(q, DTensor):
+        # batch- and head-parallel: each rank attends over its own block
+        fn = functools.partial(chunked_attention, causal=causal,
+                               window=window, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk)
+        return act.blockwise(fn, (q, k, v), ((0, 2),) * 3, (0, 2),
+                             heads=(q.shape[2], k.shape[2]))
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -183,7 +195,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None):
     H = q.shape[1]
     rep = H // Hkv
     scale = dh ** -0.5
-    qr = q.reshape(B, Hkv, rep, dh)
+    qr = act.tile(q, 1, Hkv).reshape(B, Hkv, rep, dh)
     logits = _f32_einsum("bhrd,bshd->bhrs", qr, k_cache) * scale
     idx = torch.arange(Smax, device=q.device)
     allow = idx[None, :] <= pos[:, None]
@@ -207,6 +219,13 @@ def mlp_gelu(x, w_up, b_up, w_down, b_down):
 
 
 # ------------------------------------------------------------------ MoE
+def _experts(h, w_gate, w_up, w_down):
+    """The experts' SwiGLU FFN over their dispatched slots h (B,E,C,D)."""
+    g = F.silu(torch.einsum("becd,edf->becf", h, w_gate))
+    u = torch.einsum("becd,edf->becf", h, w_up)
+    return torch.einsum("becf,efd->becd", g * u, w_down)
+
+
 def moe_ffn(x, w_router, w_gate, w_up, w_down, *, topk: int,
             capacity_factor: float = 1.25):
     """Top-k MoE with *per-row* sort-based dispatch (GShard-style capacity).
@@ -246,18 +265,26 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, *, topk: int,
     st = flat_t[order]                                           # (B,n)
     sw = flat_w.gather(1, order)
     # position within expert group = index - first occurrence of expert
-    first = torch.searchsorted(se, se, side="left")
+    # DTensor has no sharding rule for searchsorted: on a mesh it runs on
+    # the gathered (B, n) expert ids
+    first = act.replicated(torch.searchsorted, se, se, side="left")
     pos_in_e = torch.arange(n, device=dev) - first
     keep = pos_in_e < C
     dest = torch.where(keep, se * C + pos_in_e, E * C)
-    buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=dev)
-    buf.scatter_(1, dest[..., None].expand(B, n, D),
-                 x.gather(1, st[..., None].expand(B, n, D)))
+    # out of place, so on a mesh the zero buffer (a plain tensor, taken as
+    # replicated) yields a DTensor
+    buf = torch.zeros((B, E * C + 1, D), dtype=x.dtype, device=dev).scatter(
+        1, dest[..., None].expand(B, n, D),
+        x.gather(1, st[..., None].expand(B, n, D)))
     h = buf[:, :-1].reshape(B, E, C, D)
 
-    g = F.silu(torch.einsum("becd,edf->becf", h, w_gate.to(x.dtype)))
-    u = torch.einsum("becd,edf->becf", h, w_up.to(x.dtype))
-    y = torch.einsum("becf,efd->becd", g * u, w_down.to(x.dtype))
+    # on a mesh each rank runs its batch rows through every expert's
+    # block of the mlp dim: DTensor's own einsum can leave a permuted
+    # local block it cannot view (grad_accum's micro-batches)
+    y = act.blockwise(_experts, (h, w_gate.to(x.dtype), w_up.to(x.dtype),
+                                 w_down.to(x.dtype)),
+                      ((0, None), (None, 2), (None, 2), (None, 1)), (0, None),
+                      heads=(w_gate.shape[-1],), sum_heads=True)
 
     rows = y.reshape(B, E * C, D)
     gathered = torch.where(
@@ -301,6 +328,12 @@ def mamba1_scan(x, dt, A, Bm, Cm, D, *, chunk: int = 256, h0=None):
     x (B, S, d_in); dt (B, S, d_in) softplus'd step sizes; A (d_in, N)
     negative; Bm, Cm (B, S, N); D (d_in,); h0 optional (B, d_in, N).
     Returns (y (B, S, d_in), h_last (B, d_in, N))."""
+    if isinstance(x, DTensor):
+        fn = functools.partial(mamba1_scan, chunk=chunk, h0=h0)
+        return act.blockwise(
+            fn, (x, dt, A, Bm, Cm, D),
+            ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0)),
+            ((0, 2), (0, 1)), heads=(x.shape[2],))
     B, S, d_in = x.shape
     N = A.shape[1]
     chunk = min(chunk, S)
@@ -352,6 +385,12 @@ def mamba2_ssd(x, dt, A, Bm, Cm, D, *, chunk: int = 256, h0=None):
     x (B, S, H, P); dt (B, S, H) positive; A (H,) negative; Bm, Cm
     (B, S, N) (one group, broadcast over heads); D (H,).
     Returns (y (B, S, H, P), state (B, H, N, P))."""
+    if isinstance(x, DTensor):
+        fn = functools.partial(mamba2_ssd, chunk=chunk, h0=h0)
+        return act.blockwise(
+            fn, (x, dt, A, Bm, Cm, D),
+            ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0)),
+            ((0, 2), (0, 1)), heads=(x.shape[2],))
     B, S, H, Pd = x.shape
     N = Bm.shape[-1]
     chunk = min(chunk, S)

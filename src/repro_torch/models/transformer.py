@@ -8,10 +8,9 @@ the hybrid's single `shared_attn` set applied after every group. The
 reference's `lax.scan` over groups becomes a Python loop over that stacked
 axis: a loop over layers, never over tokens.
 
-The reference anchors activations with `act.btd`, `act.bd` and
-`act.logits_spec` (`repro/dist/act.py`). With no mesh they are identities,
-and the port runs on one card, so this module calls nothing in their
-place; they come back with the port's `dist/` (shards on several cards).
+Activations are anchored with `act.btd`, `act.bd` and `act.logits_spec`
+(`repro_torch/dist/act.py`) where the reference anchors them. With no
+mesh, or a one-rank mesh, each returns the tensor it was given.
 
 Decode updates the caches in place and returns the same tree (what the
 reference gets from buffer donation): a full-width cache is tens of GB,
@@ -33,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import act
 from repro_torch.models.common import (ParamSpec, init_params, param_tree,
                                        register_params, remat_call,
                                        tree_index, tree_unstack)
@@ -211,7 +211,7 @@ def _embed(cfg: ModelConfig, params, tokens):
     """Hazard b: the reference casts the whole table and then gathers
     (`embed.astype(cdt)[tokens]`); gathering first gives the same bits
     without casting a 1.56 GB table on every decode step."""
-    return params["embed"][tokens].to(cfg.cdt)
+    return act.embed(params["embed"], tokens).to(cfg.cdt)
 
 
 def _logits(cfg: ModelConfig, params, x):
@@ -232,12 +232,19 @@ def _attn_block(cfg: ModelConfig, p, x, positions, *, window, moe: bool):
         q = q + p["bq"].to(h.dtype)
         k = k + p["bk"].to(h.dtype)
         v = v + p["bv"].to(h.dtype)
-    q = rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, Hkv, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, Hkv, hd)
+    q = rope(act.tile(q, -1, H).reshape(B, S, H, hd), positions,
+             cfg.rope_theta)
+    k = rope(act.tile(k, -1, Hkv).reshape(B, S, Hkv, hd), positions,
+             cfg.rope_theta)
+    v = act.tile(v, -1, Hkv).reshape(B, S, Hkv, hd)
     o = chunked_attention(q, k, v, causal=True, window=window,
                           q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    x = x + (o.reshape(B, S, H * hd) @ p["wo"].to(h.dtype)).to(x.dtype)
+    # mid-block anchor (no counterpart in the reference, where GSPMD
+    # propagates the block-boundary ones): without it DTensor's op-by-op
+    # choice can leave the residual sharded over "model" and the MLP
+    # gathers its weights
+    o = act.shard_model(o.reshape(B, S, H * hd), -1)
+    x = act.btd(x + (o @ p["wo"].to(h.dtype)).to(x.dtype))
 
     h2 = _norm(cfg, x, p["ln2"])
     if moe:
@@ -277,9 +284,9 @@ def _mamba2_block(cfg: ModelConfig, p, x):
     Cm = h @ p["wC"].to(h.dtype)
     dt = softplus((h @ p["wdt"].to(h.dtype)).to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, _ = mamba2_ssd(xp.reshape(B, S, Hm, Pd), dt, A, Bm, Cm, p["Dp"],
-                      chunk=cfg.q_chunk)
-    y = y.reshape(B, S, di)
+    y, _ = mamba2_ssd(act.tile(xp, -1, Hm).reshape(B, S, Hm, Pd), dt, A, Bm,
+                      Cm, p["Dp"], chunk=cfg.q_chunk)
+    y = act.shard_model(y.reshape(B, S, di), -1)
     y = rms_norm(y * F.silu(z), p["gn"])
     return x + y @ p["out_proj"].to(h.dtype)
 
@@ -305,9 +312,9 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, prefix_embeds=None,
     Returns logits (B, S, vocab) in f32. With `remat` (the reference's
     activation checkpointing) each group body and each remainder block
     runs under `remat_call`, so a backward recomputes its activations."""
-    x = _embed(cfg, params, tokens)
+    x = act.btd(_embed(cfg, params, tokens))
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(cfg.cdt), x], dim=1)
+        x = act.btd(torch.cat([prefix_embeds.to(cfg.cdt), x], dim=1))
     B, S, d = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
 
@@ -316,11 +323,11 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, prefix_embeds=None,
 
     def group_body(x, gp):
         for i, kind in enumerate(body_pattern):
-            x = _apply_block(cfg, kind, gp[f"p{i}"], x, positions)
+            x = act.btd(_apply_block(cfg, kind, gp[f"p{i}"], x, positions))
         if cfg.family == "hybrid":
             # hazard h: the one shared attention set, after every group
-            x = _attn_block(cfg, params["shared_attn"], x, positions,
-                            window=None, moe=False)
+            x = act.btd(_attn_block(cfg, params["shared_attn"], x, positions,
+                                    window=None, moe=False))
         return x
 
     groups = tree_unstack(params["groups"])
@@ -332,7 +339,7 @@ def lm_forward(cfg: ModelConfig, params, tokens, *, prefix_embeds=None,
                        remat, x, tree_index(params["rem"][f"p{i}"], 0))
 
     x = _norm(cfg, x, params["final_norm"])
-    return _logits(cfg, params, x)
+    return act.logits_spec(_logits(cfg, params, x))
 
 
 # ===================================================================== decode
@@ -390,13 +397,14 @@ def _attn_decode(cfg, p, x, cache, pos, *, window, moe: bool):
         q, k, v = (q + p["bq"].to(h.dtype), k + p["bk"].to(h.dtype),
                    v + p["bv"].to(h.dtype))
     pos1 = pos[:, None]
-    q = rope(q.reshape(B, 1, H, hd), pos1, cfg.rope_theta)[:, 0]
-    k = rope(k.reshape(B, 1, Hkv, hd), pos1, cfg.rope_theta)[:, 0]
-    v = v.reshape(B, Hkv, hd)
-    bidx = torch.arange(B, device=x.device)
+    q = rope(act.tile(q, -1, H).reshape(B, 1, H, hd), pos1,
+             cfg.rope_theta)[:, 0]
+    k = rope(act.tile(k, -1, Hkv).reshape(B, 1, Hkv, hd), pos1,
+             cfg.rope_theta)[:, 0]
+    v = act.tile(v, -1, Hkv).reshape(B, Hkv, hd)
     kc, vc = cache["k"], cache["v"]
-    kc[bidx, pos] = k.to(kc.dtype)
-    vc[bidx, pos] = v.to(vc.dtype)
+    act.put_rows_(kc, pos, k.to(kc.dtype))
+    act.put_rows_(vc, pos, v.to(vc.dtype))
     o = decode_attention(q, kc, vc, pos, window=window)
     x = x + o.reshape(B, H * hd) @ p["wo"].to(h.dtype)
 
@@ -452,8 +460,8 @@ def _mamba2_decode(cfg, p, x, cache):
     Cm = h @ p["wC"].to(h.dtype)
     dt = softplus((h @ p["wdt"].to(h.dtype)).to(f32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    ssm, y = mamba2_step(cache["ssm"], xp.reshape(B, Hm, Pd), dt, A, Bm, Cm,
-                         p["Dp"])
+    ssm, y = mamba2_step(cache["ssm"], act.tile(xp, -1, Hm).reshape(B, Hm, Pd),
+                         dt, A, Bm, Cm, p["Dp"])
     cache["ssm"].copy_(ssm)
     y = y.reshape(B, cfg.d_inner)
     y = rms_norm((y * F.silu(z))[:, None, :], p["gn"])[:, 0]
@@ -478,13 +486,14 @@ def lm_decode_step(cfg: ModelConfig, params, caches, token, pos):
     """One decode step. token (B,) integer; pos (B,) integer (current
     index). Returns (logits (B, vocab) f32, caches), the caches updated in
     place."""
-    x = _embed(cfg, params, token)
+    x = act.bd(_embed(cfg, params, token))
     pattern, n_groups, rem = cfg.layer_plan()
     body_pattern = [k for k in pattern if k != "shared_attn"]
     for g in range(n_groups):
         gp, gc = tree_index(params["groups"], g), tree_index(caches["groups"], g)
         for i, kind in enumerate(body_pattern):
-            x = _decode_block(cfg, kind, gp[f"p{i}"], x, gc[f"p{i}"], pos)
+            x = act.bd(_decode_block(cfg, kind, gp[f"p{i}"], x, gc[f"p{i}"],
+                                     pos))
         if cfg.family == "hybrid":
             x = _attn_decode(cfg, params["shared_attn"], x, gc["shared"], pos,
                              window=None, moe=False)

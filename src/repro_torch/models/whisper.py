@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist import act
 from repro_torch.models.common import (ParamSpec, init_params, param_tree,
                                        register_params, remat_call,
                                        tree_index, tree_unstack)
@@ -104,11 +105,12 @@ def _mha(cfg, x, kv, p, pre, *, causal):
     k = hk @ p[f"{pre}_wk"].to(h.dtype)
     v = hk @ p[f"{pre}_wv"].to(h.dtype) + p[f"{pre}_bv"].to(h.dtype)
     T = kv.shape[1]
+    q, k, v = (act.tile(t, -1, H) for t in (q, k, v))
     o = chunked_attention(q.reshape(B, S, H, hd), k.reshape(B, T, H, hd),
                           v.reshape(B, T, H, hd), causal=causal,
                           q_chunk=min(cfg.q_chunk, S), kv_chunk=min(cfg.kv_chunk, T))
-    return x + (o.reshape(B, S, H * hd) @ p[f"{pre}_wo"].to(h.dtype)
-                + p[f"{pre}_bo"].to(h.dtype))
+    o = act.shard_model(o.reshape(B, S, H * hd), -1)
+    return x + (o @ p[f"{pre}_wo"].to(h.dtype) + p[f"{pre}_bo"].to(h.dtype))
 
 
 def _mlp(cfg, x, p):
@@ -120,11 +122,11 @@ def _mlp(cfg, x, p):
 def whisper_encode(cfg: ModelConfig, params, frames):
     """frames (B, T_enc, d) precomputed frame embeddings (conv stub). As in
     the reference, every encoder layer is rematerialized in a backward."""
-    x = frames.to(cfg.cdt) + _sinusoids(frames.shape[1], cfg.d_model,
-                                        frames.device).to(cfg.cdt)
+    x = act.btd(frames.to(cfg.cdt) + _sinusoids(frames.shape[1], cfg.d_model,
+                                                frames.device).to(cfg.cdt))
 
     def body(x, p):
-        return _mlp(cfg, _mha(cfg, x, x, p, "s", causal=False), p)
+        return act.btd(_mlp(cfg, _mha(cfg, x, x, p, "s", causal=False), p))
 
     layers = tree_unstack(params["enc"])
     for l in range(cfg.encoder_layers):
@@ -139,18 +141,19 @@ def whisper_forward(cfg: ModelConfig, params, frames, tokens,
     enc = whisper_encode(cfg, params, frames)
     B, S = tokens.shape
     # hazard b: gather, then cast
-    x = params["embed"][tokens].to(cfg.cdt) + params["pos_dec"][:S].to(cfg.cdt)
+    x = act.btd(act.embed(params["embed"], tokens).to(cfg.cdt)
+                + params["pos_dec"][:S].to(cfg.cdt))
 
     def body(x, p):
         x = _mha(cfg, x, x, p, "s", causal=True)
         x = _mha(cfg, x, enc, p, "x", causal=False)
-        return _mlp(cfg, x, p)
+        return act.btd(_mlp(cfg, x, p))
 
     layers = tree_unstack(params["dec"])
     for l in range(cfg.n_layers):
         x = remat_call(body, remat, x, tree_index(layers, l))
     x = layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
-    return (x @ params["embed"].T.to(x.dtype)).to(f32)
+    return act.logits_spec((x @ params["embed"].T.to(x.dtype)).to(f32))
 
 
 def whisper_init_caches(cfg: ModelConfig, batch: int, smax: int,
@@ -174,8 +177,8 @@ def whisper_decode_step(cfg: ModelConfig, params, caches, token, pos):
     Returns (logits (B, vocab) f32, caches)."""
     B = token.shape[0]
     H, hd = cfg.n_heads, cfg.hd
-    x = params["embed"][token].to(cfg.cdt) + params["pos_dec"][pos].to(cfg.cdt)
-    bidx = torch.arange(B, device=token.device)
+    x = (act.embed(params["embed"], token).to(cfg.cdt)
+         + act.embed(params["pos_dec"], pos).to(cfg.cdt))
     cross_pos = torch.full((B,), cfg.encoder_seq - 1, dtype=torch.int64,
                            device=token.device)
     for l in range(cfg.n_layers):
@@ -186,8 +189,8 @@ def whisper_decode_step(cfg: ModelConfig, params, caches, token, pos):
         q = (h @ p["s_wq"].to(h.dtype) + p["s_bq"].to(h.dtype)).reshape(B, H, hd)
         k = (h @ p["s_wk"].to(h.dtype)).reshape(B, H, hd)
         v = (h @ p["s_wv"].to(h.dtype) + p["s_bv"].to(h.dtype)).reshape(B, H, hd)
-        sk[bidx, pos] = k.to(sk.dtype)
-        sv[bidx, pos] = v.to(sv.dtype)
+        act.put_rows_(sk, pos, k.to(sk.dtype))
+        act.put_rows_(sv, pos, v.to(sv.dtype))
         o = decode_attention(q, sk, sv, pos)
         x = x + (o.reshape(B, H * hd) @ p["s_wo"].to(h.dtype)
                  + p["s_bo"].to(h.dtype))

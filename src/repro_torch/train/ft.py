@@ -14,7 +14,10 @@
 
 The train step updates params and moments in place, so a resume copies
 the restored leaves into the trainer's tensors, on their device and in
-their dtype.
+their dtype. On a mesh (DTensor leaves) every rank gathers each leaf and
+rank 0 alone writes it, in the one-device layout, so a meshed run's
+checkpoint restores into the one-device trainer and back; a resume keeps
+each rank's block of the restored leaf.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.train import checkpoint as ckpt
 
@@ -81,15 +86,30 @@ class ElasticTrainer:
                     raise ValueError(
                         f"checkpoint leaf {tuple(src.shape)} {src.dtype} "
                         f"does not fit {tuple(t.shape)} {t.dtype}")
+                if isinstance(t, DTensor):
+                    # every rank read the same file: keep its own block
+                    src = distribute_tensor(src.to(t.device), t.device_mesh,
+                                            t.placements, src_data_rank=None)
+                    t = t.to_local()
+                    src = src.to_local()
                 t.copy_(src)
         self.step = last
         return True
 
     def _save(self) -> None:
+        tree = self._tree()
+        leaves = ckpt._flatten(tree)
+        if any(isinstance(t, DTensor) for t in leaves):
+            # a collective on every rank, then rank 0 writes
+            tree = ckpt._unflatten(tree, [
+                t.full_tensor() if isinstance(t, DTensor) else t
+                for t in leaves])
+            if dist.get_rank() != 0:
+                return
         if self.async_save:
-            ckpt.save_async(self.ckpt_dir, self.step, self._tree())
+            ckpt.save_async(self.ckpt_dir, self.step, tree)
         else:
-            ckpt.save(self.ckpt_dir, self.step, self._tree())
+            ckpt.save(self.ckpt_dir, self.step, tree)
 
     def run(self, n_steps: int, *, fail_at: int | None = None):
         """Run to self.step == n_steps; raises RuntimeError at `fail_at`

@@ -12,6 +12,15 @@ Each leaf is worked through in flat chunks of at most `CHUNK` elements, so
 the temporaries of the update stay at a few chunks whatever the leaf's
 size. The f32 arithmetic follows the reference's expressions operation
 for operation (each product and sum rounded on its own).
+
+On a mesh the leaves are DTensors. AdamW is elementwise, so each gradient
+is redistributed to its moments' placements (a reduce-scatter where it is
+a partial sum) and the update runs unchanged on the local shards of p, g,
+m and v. The global norm is each leaf's local sum of squares, summed over
+the mesh dims that shard it: it matches one device's within rounding, not
+bit for bit. Where the params are placed otherwise than the moments (the
+dry run's zero1: params TP-only, moments FSDP-sharded) a param's block at
+the moments' placements is updated and gathered back.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models.common import tree_leaves, tree_map
 
@@ -55,7 +65,9 @@ class OptState(NamedTuple):
 
 
 def opt_init(params, cfg: OptConfig) -> OptState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.sdt, device=p.device)
+    """Zero moments in `cfg`'s state dtype, each placed as its param (a
+    DTensor param gives DTensor moments)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=cfg.sdt)
     device = tree_leaves(params)[0].device
     return OptState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=device))
@@ -73,16 +85,29 @@ def lr_at(step: torch.Tensor, cfg: OptConfig) -> torch.Tensor:
 
 
 def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    if isinstance(x, DTensor):
+        # the local shard's sum, summed over the mesh dims that shard it
+        if any(p.is_partial() for p in x.placements):
+            raise ValueError("a partial-sum gradient has no norm; "
+                             "redistribute it first")
+        pl = [Partial() if p.is_shard() else Replicate()
+              for p in x.placements]
+        return DTensor.from_local(_sum_sq(x.to_local()), x.device_mesh, pl,
+                                  run_check=False).full_tensor()
     flat = x.reshape(-1)
     parts = [torch.sum(flat[i:i + CHUNK].to(f32) ** 2)
-             for i in range(0, flat.numel(), CHUNK)]
+             for i in range(0, max(flat.numel(), 1), CHUNK)]
     return torch.stack(parts).sum() if len(parts) > 1 else parts[0]
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of the per-leaf f32 sums of squares, in leaf order."""
-    return torch.sqrt(torch.sum(torch.stack(
-        [_sum_sq(g) for g in tree_leaves(tree)])))
+    """sqrt of the sum of the per-leaf f32 sums of squares, in leaf order
+    (a plain tensor for DTensor leaves too)."""
+    return _norm(tree_leaves(tree))
+
+
+def _norm(leaves: list) -> torch.Tensor:
+    return torch.sqrt(torch.sum(torch.stack([_sum_sq(g) for g in leaves])))
 
 
 def _adamw_(p, g, m, v, *, scale, lr, b1t, b2t, wd: float,
@@ -120,19 +145,33 @@ def opt_update(grads, state: OptState, params, cfg: OptConfig):
     Returns (params, new_state, metrics); `new_state` holds the same
     moment tensors and a new step counter."""
     with torch.no_grad():
+        g_leaves = [g.redistribute(m.device_mesh, m.placements)
+                    if isinstance(m, DTensor) else g
+                    for g, m in zip(tree_leaves(grads), tree_leaves(state.m))]
         step = state.step + 1
         lr = lr_at(step, cfg)
-        gnorm = global_norm(grads)
+        gnorm = _norm(g_leaves)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         b1t = 1 - torch.pow(cfg.b1, step.to(f32))
         b2t = 1 - torch.pow(cfg.b2, step.to(f32))
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+        for p, g, m, v in zip(tree_leaves(params), g_leaves,
                               tree_leaves(state.m), tree_leaves(state.v)):
             # decoupled weight decay on >=2D leaves only (norms/biases
             # exempt); a stacked leaf counts its layers axis, as there
             wd = cfg.weight_decay if p.ndim >= 2 else 0.0
-            _adamw_(p, g, m, v, scale=scale, lr=lr, b1t=b1t, b2t=b2t, wd=wd,
-                    cfg=cfg)
+            kw = dict(scale=scale, lr=lr, b1t=b1t, b2t=b2t, wd=wd, cfg=cfg)
+            if not isinstance(p, DTensor):
+                _adamw_(p, g, m, v, **kw)
+            elif p.placements == m.placements:
+                _adamw_(p.to_local(), g.to_local(), m.to_local(),
+                        v.to_local(), **kw)
+            else:
+                mesh = m.device_mesh
+                blk = p.redistribute(mesh, m.placements)
+                _adamw_(blk.to_local(), g.to_local(), m.to_local(),
+                        v.to_local(), **kw)
+                p.to_local().copy_(blk.redistribute(mesh, p.placements)
+                                   .to_local())
     return params, OptState(state.m, state.v, step), {"lr": lr,
                                                       "grad_norm": gnorm}

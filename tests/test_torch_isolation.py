@@ -7,7 +7,8 @@ snapshots, sharded too, lists its program specs (`python -m
 repro_torch.analysis list`), serves every REDUCED LM arch
 (`repro_torch.launch.serve.generate`), and trains, checkpoints and
 resumes through `python -m repro_torch.launch.train` where none of the
-three can be imported."""
+three can be imported. Torch's fake process group (a test-only torch API)
+appears in the port's dry run alone."""
 import ast
 import os
 import subprocess
@@ -40,7 +41,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.shapes, repro_torch.train.step, "
             "repro_torch.launch.serve, repro_torch.train, "
             "repro_torch.train.optimizer, repro_torch.train.ft, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.dist, "
+            "repro_torch.dist.act, repro_torch.dist.sharding, "
+            "repro_torch.launch.mesh, repro_torch.launch.hlocost, "
+            "repro_torch.launch.dryrun; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -64,6 +68,18 @@ def test_no_jax_or_reference_import_in_source(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro", "msgpack"), \
                 (path, node.lineno, name)
+
+
+# torch's fake process group is a private, test-only torch API: the port
+# uses it in its dry run alone
+FAKE_GROUP_OK = {ROOT / "src" / "repro_torch" / "launch" / "dryrun.py"}
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_fake_process_group_only_in_the_dry_run(path):
+    text = path.read_text()
+    uses = "fake_pg" in text or "FakeStore" in text
+    assert uses == (path in FAKE_GROUP_OK), path
 
 
 _BLOCKED_RUN = """

@@ -2,8 +2,8 @@
 the CPU at REDUCED width: two steps fed by each dedup mode (direct FOLD
 ingest, the service, no dedup, the `dpk` backend), gradient
 accumulation, resume from its own checkpoints (which does not replay the
-batches of the run it resumes), `--mesh` refused, the card
-as the default device, and the admitted stream against the reference
+batches of the run it resumes), `--mesh 1,1` on a one-rank gloo group
+against the unmeshed run, the card as the default device, and the admitted stream against the reference
 launcher's data stage on the same seed."""
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro.data import DedupIngest as JaxDedupIngest
 from repro.data import PackedBatches as JaxPackedBatches
 from repro.data import SyntheticCorpus as JaxSyntheticCorpus
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.train import MESH_REFUSED, main
+from repro_torch.launch.train import main
 
 torch.set_num_threads(2)
 
@@ -136,12 +136,30 @@ def test_cli_resume_does_not_replay_the_batches(tmp_path):
     assert not torch.equal(got, whole.batches[2]["tokens"])
 
 
-def test_mesh_is_refused_with_the_roadmap_item(capsys):
-    with pytest.raises(SystemExit) as stop:
-        main(ARGS + ["--mesh", "1,1"])
-    assert stop.value.code == 2
-    err = capsys.readouterr().err
-    assert MESH_REFUSED in err and "ROADMAP.md queue 1, item 9" in err
+def test_mesh_one_rank_trains_as_the_unmeshed_cli(tmp_path):
+    """`--mesh 1,1` starts its own one-rank gloo group, trains on DTensor
+    params and moments, and takes it down again; its losses and batches
+    are the unmeshed run's, and its checkpoint resumes one device."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.common import tree_leaves
+    plain = _run(tmp_path / "plain")
+    meshed = main(ARGS + ["--mesh", "1,1", "--ckpt-every", "2",
+                          "--ckpt-dir", str(tmp_path / "mesh")])
+    assert not dist.is_initialized()
+    assert meshed.mesh is not None and meshed.mesh.mesh_dim_names == (
+        "data", "model")
+    assert all(isinstance(t, DTensor)
+               for t in tree_leaves(meshed.trainer.params))
+    for a, b in zip(plain.log, meshed.log):
+        assert abs(a["loss"] - b["loss"]) < 1e-3
+    for k in plain.batches:
+        assert torch.equal(plain.batches[k]["tokens"],
+                           meshed.batches[k]["tokens"].full_tensor())
+    resumed = main(ARGS[:3] + ["3"] + ARGS[4:] + [
+        "--ckpt-dir", str(tmp_path / "mesh")])
+    assert resumed.resumed_from == 2 and resumed.mesh is None
 
 
 def test_default_device_is_the_card(monkeypatch):
