@@ -113,6 +113,27 @@ Phases (any failure exits non-zero and prints no result):
      ingest. (b) REDUCED qwen1.5-4b and grok-1-314b, one train step each
      on the (1, 1) mesh and unmeshed on the card, from the same weights
      and batch: loss within 1e-3, params within 2e-3.
+ 16. examples — the six port examples (examples/*_torch.py) through their
+     `main` in this process on the card, their printed lines captured.
+     (a) quickstart, (b) service_demo, (c) cluster_demo and (d)
+     distributed_dedup at their defaults, with the service batcher's and
+     the cluster's tenant clocks frozen at 0: docs/s, recall, FP, p99
+     batch ms; K1 and K2 launched in (a)-(c), K1 4 times and no other
+     kernel in (d). (e) train_dedup_lm at demo-124m, batch 64 x seq 256,
+     5 steps (the example's 300 cut by the run's time limit): loss first
+     -> last, each step timed on the card, tokens/s, peak memory, dedup
+     admitted/in; K1 and K2 once per ingest pull. (f) serve_demo at
+     zamba2-7b full width (6,751,078,992 parameters) at batch 4, prompt
+     32, gen 64: prefill s, decode tokens/s, median step, peak memory, one
+     profiled decode step, finite logits; the decode loop's
+     last-prompt-position logits no further from an f32-compute prefill's
+     than make_prefill_step's bf16 logits are, within 25% (mean and
+     largest error; the tests' rule for zamba2 at bf16), and at f32
+     compute the decode loop within 10 times what one ulp on the input
+     embeddings moves the prefill; K1-K4 never launched. Then, in parallel CPU processes, (a)-(d)
+     again with `--device cpu` (equal output once the wall-clock fields
+     are masked) and a DedupIngest over (e)'s pulls (equal admitted count
+     in every pull).
 Launch counts are reset just before each path is driven and read just
 after; the comparison launches of phase 1 are not counted.
 
@@ -201,6 +222,34 @@ LM_TRAIN_FULL = (2, 512, 9)
 LM_TRAIN_DEFAULT = (8, 256, 4)        # launch.train's default batch x seq
 LM_TRAIN_SERVICE_STEPS = 2
 LM_TRAIN_SHARE = {"float32": 1e-5, "ssm": 1e-3}
+# phase 16: the port's examples (examples/*_torch.py), each at its own
+# defaults on the card and (a)-(d) on the CPU; (e) demo-124m at the batch
+# the example's docstring gives for an accelerator, its 300 steps cut to
+# 5 by the run's time limit (c4's short docs take 2 ingest pulls of 256 a
+# step, and the CPU replays every pull at 5-10 s each); (f) zamba2-7b at
+# full width at the serving CLI's defaults (batch 4, prompt 32, gen 64).
+# The CPU runs go in parallel processes, each given EX_CPU_THREADS
+# intra-op threads (the two longest two each) on the host's 8 cores.
+EXAMPLES = os.path.join(ROOT, "examples")
+EX_DEDUP = ("quickstart", "service_demo", "cluster_demo",
+            "distributed_dedup")
+EX_TRAIN = (64, 256, 5)               # batch, seq, steps
+EX_TRAIN_PULL = 256                   # docs per ingest pull in the example
+EX_VOCAB = 32_000                     # the example's model vocab
+EX_CPU_THREADS = {"quickstart": 2, "service_demo": 2}   # others 1
+EX_SERVE = ["--arch", "zamba2-7b", "--full"]
+EX_SERVE_PARAMS = 6_751_078_992
+# (f): zamba2 at bf16 is held as the tests hold it (LM_TOL's hybrid rule):
+# the decode loop's last-prompt-position logits no further from an
+# f32-compute prefill's than the bf16 prefill's are, within 25% (mean and
+# largest error)
+EX_SERVE_SLACK = 1.25
+# At f32 compute the decode loop and the prefill round differently at
+# every op, and 81 layers of random weights amplify rounding: the two must
+# differ by no more than EX_SERVE_ULP_FACTOR times what flipping the input
+# embeddings by one f32 ulp moves the prefill's logits (a wrong cache
+# position or state moves them by the logits' own scale)
+EX_SERVE_ULP_FACTOR = 10.0
 # published H100 SXM peaks (NVIDIA data sheet) used for the bounds
 HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer ALU ops: a quarter of the 67 TFLOP/s float32 figure
@@ -2314,6 +2363,432 @@ def phase_lm_train_mesh(card: str, dev, full14: dict) -> dict:
     return out
 
 
+def load_example(name: str):
+    """examples/<name>_torch.py as a fresh module (its `main(argv)`)."""
+    import importlib.util
+    path = os.path.join(EXAMPLES, f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class FrozenClocks:
+    """Freeze the service batcher's clock and the cluster writer's tenant
+    clock at 0 (the `MicroBatcher` name in repro_torch.service.service,
+    the `ClusterWriter` name in repro_torch.cluster.router): a partial
+    micro-batch leaves only when its results are asked for, and a QPS
+    bucket serves its burst and nothing after it, on every device."""
+
+    def __enter__(self):
+        import functools
+
+        import repro_torch.cluster.router as router
+        import repro_torch.service.service as service
+        frozen = lambda: 0.0  # noqa: E731
+        self.saved = [(service, "MicroBatcher", service.MicroBatcher),
+                      (router, "ClusterWriter", router.ClusterWriter)]
+        for mod, name, cls in self.saved:
+            setattr(mod, name, functools.partial(cls, clock=frozen))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, cls in self.saved:
+            setattr(mod, name, cls)
+
+
+def run_example(name: str, argv: list, setup=None) -> dict:
+    """One example's `main(argv)` in this process: what it printed, its
+    wall time and the kernel launches counted from just before it to just
+    after it. `setup(module)` may wrap names of the module first."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.kernels import _lib
+    on_card = "cuda" in argv
+    mod = load_example(name)
+    if setup is not None:
+        setup(mod)
+    out = io.StringIO()
+    if on_card:
+        torch.cuda.synchronize()
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        mod.main(argv)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    text = out.getvalue()
+    if on_card:
+        for line in text.splitlines():
+            log(f"  [{name}] {line}")
+    return {"text": text, "wall_s": wall, "launches": launches}
+
+
+_CLOCK_FIELDS = [(r"\s*[-\d.e+inf]+ docs/s", " <t> docs/s"),
+                 (r"qps=\s*[-\d.e+inf]+", "qps=<t>"),
+                 (r"p99_batch=\s*[-\d.e+inf]+ms", "p99_batch=<t>ms")]
+
+
+def mask_clock(text: str) -> str:
+    """An example's output with its wall-clock fields masked."""
+    import re
+    for pat, rep in _CLOCK_FIELDS:
+        text = re.sub(pat, rep, text)
+    return text
+
+
+def cpu_job(kind: str, arg, threads: int) -> None:
+    """One CPU run of phase 16, in a process of its own (see cpu_jobs)
+    with `threads` intra-op threads: an example at its defaults with
+    `--device cpu` and frozen clocks ("example", name), or a DedupIngest
+    over (e)'s corpus ("ingest", the number of pulls). Prints one JSON
+    line: the example's output and its launches, or each pull's admitted
+    count."""
+    import torch
+    torch.set_num_threads(threads)
+    if kind == "example":
+        with FrozenClocks():
+            run = run_example(arg, ["--device", "cpu"])
+        print(json.dumps(run), flush=True)
+        return
+    from repro_torch.core.dedup import FoldConfig
+    from repro_torch.data import DATASET_PRESETS, DedupIngest, SyntheticCorpus
+    t0 = time.perf_counter()
+    ing = DedupIngest(
+        SyntheticCorpus(dataclasses.replace(DATASET_PRESETS["c4"],
+                                            vocab=EX_VOCAB)),
+        FoldConfig(capacity=1 << 15, ef_construction=48, ef_search=48,
+                   threshold_space="minhash"), device="cpu")
+    pulls = [len(ing.next_clean_batch(EX_TRAIN_PULL)[1]) for _ in range(arg)]
+    print(json.dumps({"pulls": pulls, "wall_s": time.perf_counter() - t0}),
+          flush=True)
+
+
+def cpu_jobs(jobs: dict) -> dict:
+    """Run every (kind, arg) of `jobs` through cpu_job, each in its own
+    process (EX_CPU_THREADS intra-op threads, else one), all at once; wait
+    for all of them and return tag -> the job's JSON record. A job that
+    fails fails the script; none outlives this call."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for tag, (kind, arg) in jobs.items():
+        threads = EX_CPU_THREADS.get(tag, 1)
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); "
+                f"import chip_smoke; "
+                f"chip_smoke.cpu_job({kind!r}, {arg!r}, {threads})")
+        procs[tag] = subprocess.Popen(
+            [sys.executable, "-c", code], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    out, errors = {}, []
+    for tag, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            fail(f"examples: the CPU run {tag} took over 600 s")
+        if p.returncode != 0:
+            errors.append(f"{tag}: exit {p.returncode}\n{stderr[-3000:]}")
+            continue
+        out[tag] = json.loads(stdout.strip().splitlines()[-1])
+    if errors:
+        fail("examples: CPU runs failed:\n" + "\n".join(errors))
+    return out
+
+
+def example_train(dev, card: str) -> dict:
+    """(e) train_dedup_lm at demo-124m, EX_TRAIN: each step timed on the
+    card (synchronized), its loss, and every ingest pull's admitted count
+    (held against a CPU DedupIngest by phase_examples)."""
+    import re
+
+    import torch
+    rec = {"step_ms": [], "losses": [], "pulls": []}
+
+    def setup(mod):
+        make_step, ingest_cls = mod.make_train_step, mod.DedupIngest
+
+        def timed(*a, **k):
+            step = make_step(*a, **k)
+
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args)
+                loss = float(out[2]["loss"])         # waits for the step
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["losses"].append(loss)
+                return out
+            return run
+
+        def ingest(*a, **k):
+            ing = ingest_cls(*a, **k)
+            pull = ing.next_clean_batch
+
+            def counted(n):
+                before = ing.total_admitted
+                out = pull(n)
+                rec["pulls"].append(ing.total_admitted - before)
+                return out
+            ing.next_clean_batch = counted
+            rec["ingest"] = ing
+            return ing
+        mod.make_train_step, mod.DedupIngest = timed, ingest
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S, steps = EX_TRAIN
+    run = run_example("train_dedup_lm",
+                      ["--batch", str(B), "--seq", str(S), "--steps",
+                       str(steps), "--device", dev.type], setup)
+    peak = torch.cuda.max_memory_allocated()
+    ing = rec.pop("ingest")
+    n_pulls = len(rec["pulls"])
+    if (len(rec["losses"]) != steps or not np.isfinite(rec["losses"]).all()
+            or ing.total_in != n_pulls * EX_TRAIN_PULL):
+        fail(f"examples train_dedup_lm: losses {rec['losses']}, "
+             f"{ing.total_in} docs in over {n_pulls} pulls")
+    for k in ("minhash", "jaccard_cached"):
+        if run["launches"][k] != n_pulls:
+            fail(f"examples train_dedup_lm: {k} launched "
+                 f"{run['launches'][k]} times in {n_pulls} ingest pulls")
+    med = statistics.median(rec["step_ms"][1:])
+    return {"config": "demo-124m",
+            "params": re.search(r"model: (\S+) params", run["text"])[1],
+            "batch": B, "seq": S, "steps": steps,
+            "loss_first": rec["losses"][0], "loss_last": rec["losses"][-1],
+            "losses": rec["losses"], "step_ms": rec["step_ms"],
+            "median_step_ms": med, "step_tokens_per_s": B * S / med * 1e3,
+            "printed_tokens_per_s": [float(x) for x in re.findall(
+                r"\((\d+) tok/s\)", run["text"])],
+            "run_tokens_per_s": B * S * steps / run["wall_s"],
+            "wall_s": run["wall_s"],
+            "max_memory_allocated_gib": peak / 2**30,
+            "admitted": ing.total_admitted, "docs_in": ing.total_in,
+            "pulls": rec["pulls"], "launches": run["launches"], "card": card}
+
+
+def example_serve(dev, card: str) -> dict:
+    """(f) serve_demo at zamba2-7b full width (EX_SERVE), generate's
+    arguments and result kept: one more decode step profiled; the decode
+    loop's logits at the prompt's last position against
+    make_prefill_step's, at bf16 both measured from an f32-compute prefill
+    (EX_SERVE_SLACK), and the decode loop rerun over the prompt at f32
+    compute against that prefill (EX_SERVE_ULP_FACTOR)."""
+    import gc
+
+    import torch
+
+    import repro_torch.launch.serve as serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_size
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = {}
+    generate = serve.generate
+
+    def keep(cfg, params, caches, prompts, gen):
+        out = generate(cfg, params, caches, prompts, gen)
+        kept.update(cfg=cfg, params=params, caches=caches, prompts=prompts,
+                    out=out)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    serve.generate = keep
+    try:
+        run = run_example("serve_demo", EX_SERVE + ["--device", dev.type])
+    finally:
+        serve.generate = generate
+    peak = torch.cuda.max_memory_allocated()
+    cfg, params, out = kept["cfg"], kept["params"], kept["out"]
+    n_params = tree_size(params)
+    if n_params != EX_SERVE_PARAMS:
+        fail(f"examples serve_demo: {n_params} parameters, expected "
+             f"{EX_SERVE_PARAMS}")
+    if any(run["launches"].values()):
+        fail(f"examples serve_demo: the LM path launched FOLD kernels: "
+             f"{run['launches']}")
+    B, P = kept["prompts"].shape
+    G = out.tokens.shape[1]
+    # one more decode step, profiled, at the caches' last free position
+    decode = make_decode_step(cfg)
+    tok = torch.as_tensor(out.tokens[:, -1], device=dev)
+    pos = torch.full((B,), P + G - 1, dtype=torch.int64, device=dev)
+    prof, _ = device_profile(lambda: decode(params, kept["caches"], tok, pos),
+                             "examples_zamba2_decode")
+    del kept["caches"]
+    tokens = torch.as_tensor(kept["prompts"], device=dev)
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        bf16 = make_prefill_step(cfg)(params, {"tokens": tokens})[:, -1]
+        f32 = make_prefill_step(f32_cfg)(params, {"tokens": tokens})[:, -1]
+        # the prefill's sensitivity: every input embedding moved one ulp
+        embed = params["embed"]
+        flip = torch.rand(embed.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1)) < 0.5
+        params["embed"] = embed * (1 + torch.finfo(torch.float32).eps * (
+            2 * flip.float() - 1))
+        del flip
+        f32_ulp = make_prefill_step(f32_cfg)(
+            params, {"tokens": tokens})[:, -1].float()
+        params["embed"] = embed
+    f32_loop = generate(f32_cfg, params, T.init_caches(f32_cfg, B, P, dev),
+                        kept["prompts"], 1).prompt_logits.float()
+    decode_bf16, bf16, f32 = out.prompt_logits.float(), bf16.float(), f32.float()
+    if not all(bool(torch.isfinite(t).all())
+               for t in (decode_bf16, bf16, f32, f32_loop)):
+        fail("examples serve_demo: non-finite logits at full width")
+    scale = float(f32.abs().max())
+    e_dec, e_pre = (decode_bf16 - f32).abs(), (bf16 - f32).abs()
+    if (float(e_dec.mean()) > EX_SERVE_SLACK * float(e_pre.mean())
+            or float(e_dec.max()) > EX_SERVE_SLACK * float(e_pre.max())):
+        fail(f"examples serve_demo: the decode loop's logits are "
+             f"{float(e_dec.mean())}/{float(e_dec.max())} (mean/max) from "
+             f"the f32 prefill's, the bf16 prefill's "
+             f"{float(e_pre.mean())}/{float(e_pre.max())}")
+    f32_gap = float((f32_loop - f32).abs().max())
+    ulp_gap = float((f32_ulp - f32).abs().max())
+    if f32_gap > EX_SERVE_ULP_FACTOR * ulp_gap:
+        fail(f"examples serve_demo: at f32 compute the decode loop's "
+             f"last-position logits differ from the prefill's by {f32_gap}, "
+             f"over {EX_SERVE_ULP_FACTOR} times the {ulp_gap} that one ulp "
+             f"on the input embeddings moves the prefill (largest |logit| "
+             f"{scale})")
+    res = {"arch": cfg.name, "params": n_params, "batch": B, "prompt": P,
+           "gen": G, "prefill_s": out.prefill_s, "decode_s": out.decode_s,
+           "decode_tokens_per_s": out.tokens_per_s,
+           "median_step_ms": out.median_step_ms,
+           "max_memory_allocated_gib": peak / 2**30,
+           "bf16_prefill_vs_decode_max_abs": float(
+               (bf16 - decode_bf16).abs().max()),
+           "bf16_argmax_agree": float(
+               (bf16.argmax(-1) == decode_bf16.argmax(-1)).float().mean()),
+           "decode_vs_f32_mean_max": [float(e_dec.mean()),
+                                      float(e_dec.max())],
+           "prefill_vs_f32_mean_max": [float(e_pre.mean()),
+                                       float(e_pre.max())],
+           "f32_prefill_vs_decode_max_abs": f32_gap,
+           "f32_prefill_one_ulp_max_abs": ulp_gap,
+           "f32_max_abs_logit": scale, "profile": prof,
+           "wall_s": run["wall_s"], "launches": run["launches"],
+           "card": card}
+    del kept, params, out, bf16, f32, decode_bf16, f32_loop, f32_ulp
+    del e_dec, e_pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_examples(card: str, dev) -> dict:
+    """The six port examples through their `main` (see the module
+    docstring): each on the card first, then (a)-(d) and (e)'s ingest on
+    the CPU, in parallel processes, whose output must equal the card's."""
+    import re
+
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs = {}
+    # (a) quickstart, (b) service_demo, (c) cluster_demo, (d)
+    # distributed_dedup at their defaults, clocks frozen
+    with FrozenClocks():
+        for name in EX_DEDUP:
+            runs[name] = run_example(name, ["--device", dev.type])
+    for name in ("quickstart", "service_demo", "cluster_demo"):
+        require_launched(f"examples {name}", runs[name]["launches"],
+                         ["minhash", "jaccard_cached"])
+    want = {"minhash": 4, "jaccard_cached": 0, "jaccard_nocache": 0,
+            "hamming": 0}
+    if runs["distributed_dedup"]["launches"] != want:
+        fail(f"examples distributed_dedup: launches "
+             f"{runs['distributed_dedup']['launches']}, expected {want}")
+    # (e) and (f)
+    train = example_train(dev, card)
+    srv = example_serve(dev, card)
+    runs["train_dedup_lm"] = {"launches": train["launches"]}
+    runs["serve_demo"] = {"launches": srv["launches"]}
+    # the CPU side, in parallel processes: equal output, equal pulls
+    t0 = time.perf_counter()
+    jobs = {name: ("example", name) for name in EX_DEDUP}
+    jobs["ingest"] = ("ingest", len(train["pulls"]))
+    cpu = cpu_jobs(jobs)
+    cpu_s = time.perf_counter() - t0
+    for name in EX_DEDUP:
+        got, ref = runs[name], cpu[name]
+        if mask_clock(got["text"]) != mask_clock(ref["text"]):
+            fail(f"examples {name}: the card's output differs from the "
+                 f"CPU's:\n{got['text']}\n---\n{ref['text']}")
+        if any(ref["launches"].values()):
+            fail(f"examples {name}: the CPU run launched kernels: "
+                 f"{ref['launches']}")
+        got["cpu_wall_s"] = ref["wall_s"]
+    if cpu["ingest"]["pulls"] != train["pulls"]:
+        fail(f"examples train_dedup_lm: the card admitted {train['pulls']} "
+             f"per pull, a CPU DedupIngest {cpu['ingest']['pulls']}")
+    train["cpu_ingest_s"] = cpu["ingest"]["wall_s"]
+    qs, sv, cl, dd = (runs[n] for n in EX_DEDUP)
+    qs["docs_per_s"] = [float(x) for x in
+                        re.findall(r"cycle \d+:\s+([\d.]+) docs/s", qs["text"])]
+    qs["recall"], qs["fp"] = (float(x) for x in re.search(
+        r"recall=([\d.]+) false-positive=([\d.]+)", qs["text"]).groups())
+    sv["p99_batch_ms"] = [float(x) for x in
+                          re.findall(r"p99_batch=\s*([\d.]+)ms", sv["text"])]
+    dd["docs_per_s"] = [float(x) for x in
+                        re.findall(r"\(\s*([\d.]+) docs/s\)", dd["text"])]
+    dd["admitted"] = [int(x) for x in
+                      re.findall(r"admitted\s+(\d+)/256", dd["text"])]
+    for name in EX_DEDUP:
+        r = {k: v for k, v in runs[name].items() if k != "text"}
+        log(f"examples ({name}) " + json.dumps(dict(r, card=card)))
+    log("examples (e) " + json.dumps(train))
+    log("examples (f) " + json.dumps(srv))
+    launch = lambda r: (f"K1 {r['launches']['minhash']}, K2 "  # noqa: E731
+                        f"{r['launches']['jaccard_cached']}")
+    log(f"examples (a) quickstart: docs/s {qs['docs_per_s']}, recall "
+        f"{qs['recall']}, FP {qs['fp']}; {launch(qs)}; cuda = cpu; {card}")
+    log(f"examples (b) service_demo: p99 batch ms after each wave "
+        f"{sv['p99_batch_ms']}; {launch(sv)}; cuda = cpu; {card}")
+    log(f"examples (c) cluster_demo: {launch(cl)}; cuda = cpu; {card}")
+    log(f"examples (d) distributed_dedup: admitted {dd['admitted']}, docs/s "
+        f"{dd['docs_per_s']}; {launch(dd)}; cuda = cpu; {card}")
+    log(f"examples (e) train_dedup_lm: {train['config']} "
+        f"({train['params']} params) at {train['batch']} x {train['seq']}, "
+        f"{train['steps']} steps: loss {train['loss_first']:.3f} -> "
+        f"{train['loss_last']:.3f}, median step "
+        f"{train['median_step_ms']:.2f} ms "
+        f"({train['step_tokens_per_s']:.0f} tokens/s; "
+        f"{train['run_tokens_per_s']:.0f} with ingest), peak "
+        f"{train['max_memory_allocated_gib']:.2f} GiB, dedup "
+        f"{train['admitted']}/{train['docs_in']} (= a CPU DedupIngest, pull "
+        f"by pull); {launch(train)} in {len(train['pulls'])} pulls; {card}")
+    prof = srv["profile"]
+    log(f"examples (f) serve_demo: {srv['arch']} at full width "
+        f"({srv['params']:,} parameters), batch {srv['batch']}, prompt "
+        f"{srv['prompt']}, gen {srv['gen']}: prefill {srv['prefill_s']:.2f} "
+        f"s, {srv['decode_tokens_per_s']:.1f} tokens/s, median step "
+        f"{srv['median_step_ms']:.2f} ms, peak "
+        f"{srv['max_memory_allocated_gib']:.2f} GiB; a profiled step: "
+        f"{prof['device_busy_ms']:.1f} ms busy, idle "
+        f"{prof['device_idle_share']:.4f}, {prof['device_ops']} launches; "
+        f"from an f32 prefill (mean/max): decode loop "
+        f"{srv['decode_vs_f32_mean_max']}, bf16 prefill "
+        f"{srv['prefill_vs_f32_mean_max']}; at f32 the decode loop is "
+        f"{srv['f32_prefill_vs_decode_max_abs']:.3g} from the prefill, one "
+        f"ulp on the embeddings moves it {srv['f32_prefill_one_ulp_max_abs']:.3g} "
+        f"(largest |logit| {srv['f32_max_abs_logit']:.3g}); {card}")
+    out = {"runs": runs, "train": train, "serve": srv, "cpu_s": cpu_s,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"examples: phase wall {out['phase_s']:.1f} s (the parallel CPU "
+        f"runs {cpu_s:.1f} s); {card}")
+    return out
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2405,6 +2880,7 @@ def main() -> None:
     lm = phase_lm_serve(card, dev)
     train = phase_lm_train(card, dev)
     mesh = phase_lm_train_mesh(card, dev, train["full"])
+    examples = phase_examples(card, dev)
 
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
@@ -2438,6 +2914,11 @@ def main() -> None:
         # meshed training (phase 15): K1 and K2 in its ingest
         r["path_launches"]["lm_train_mesh"] = mesh["launches"].get(
             r["name"], 0)
+        # the six examples (phase 16): K1 and K2 where they dedup on the
+        # main path, K1 alone in the sharded step, none in LM serving
+        for tag, run in examples["runs"].items():
+            r["path_launches"][f"examples/{tag}"] = run["launches"].get(
+                r["name"], 0)
     log(json.dumps({"kernels": recs, "card": card}))
     log(card)
     print(json.dumps({"ok": True, "device": {

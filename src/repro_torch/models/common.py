@@ -27,6 +27,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import resolve_device
+
 __all__ = ["ParamSpec", "init_params", "abstract_params", "param_pspecs",
            "tree_size", "tree_map", "tree_leaves", "params_from_numpy",
            "caches_from_numpy", "tree_to_numpy", "tree_index",
@@ -196,11 +198,13 @@ def _from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(tree, device: str | torch.device = "cpu") -> Any:
+def params_from_numpy(tree, device: str | torch.device | None = None) -> Any:
     """The reference's parameter tree, given as numpy arrays (for example
     `jax.tree.map(np.asarray, params)`), as the port's: the same nested
     names and stacked layout, each leaf copied (the port's decode updates
-    caches in place, so no leaf may share the caller's buffer)."""
+    caches in place, so no leaf may share the caller's buffer). `device`
+    follows the port's rule: None means cuda and raises without a card."""
+    device = resolve_device(device)
     return tree_map(lambda a: _from_numpy(a, device), tree)
 
 

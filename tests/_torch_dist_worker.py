@@ -91,8 +91,9 @@ def _rank(rank: int, outdir: str, port: str) -> None:
             specs = T.param_specs(cfg)
             pspecs = make_plan(cfg, mesh).params(specs)
             params = distribute(
-                params_from_numpy(unflatten(inputs, f"{arch}|p|")), pspecs,
-                mesh, src_data_rank=None)
+                params_from_numpy(unflatten(inputs, f"{arch}|p|"),
+                                  device="cpu"),
+                pspecs, mesh, src_data_rank=None)
             batch = distribute(
                 {k: torch.from_numpy(v) for k, v in
                  unflatten(inputs, f"{arch}|b|").items()},

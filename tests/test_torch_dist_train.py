@@ -122,7 +122,7 @@ def meshed(tmp_path_factory):
 
 def _one_device(arch: str, inputs: dict):
     cfg = _cfg(arch)
-    params = params_from_numpy(unflatten(inputs, f"{arch}|p|"))
+    params = params_from_numpy(unflatten(inputs, f"{arch}|p|"), device="cpu")
     batch = {k: torch.from_numpy(v)
              for k, v in unflatten(inputs, f"{arch}|b|").items()}
     oc = OptConfig(**OPT)

@@ -7,7 +7,9 @@ snapshots, sharded too, lists its program specs (`python -m
 repro_torch.analysis list`), serves every REDUCED LM arch
 (`repro_torch.launch.serve.generate`), and trains, checkpoints and
 resumes through `python -m repro_torch.launch.train` where none of the
-three can be imported. Torch's fake process group (a test-only torch API)
+three can be imported; the port's examples (`examples/*_torch.py`) import
+none of them either, and the quickstart runs as a script where they are
+blocked. Torch's fake process group (a test-only torch API)
 appears in the port's dry run alone."""
 import ast
 import os
@@ -19,7 +21,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def test_importing_the_port_loads_no_jax():
@@ -201,3 +203,26 @@ def test_checkpoints_round_trip_without_jax_or_msgpack(tmp_path):
     assert (tmp_path / "hnsw_sharded" / "step_00000001"
             / "arrays.msgpack").exists()
     assert (tmp_path / "train" / "step_00000002" / "arrays.msgpack").exists()
+
+
+def test_examples_exist_and_quickstart_runs_without_jax(tmp_path):
+    names = {p.name for p in PORT_FILES if p.parent.name == "examples"}
+    assert names == {f"{n}_torch.py" for n in (
+        "quickstart", "service_demo", "cluster_demo", "distributed_dedup",
+        "serve_demo", "train_dedup_lm")}
+    example = ROOT / "examples" / "quickstart_torch.py"
+    code = _BLOCKED_RUN.split("import numpy as np")[0] + (
+        "import runpy, torch\n"
+        "torch.set_num_threads(1)\n"
+        f"sys.argv = [{str(example)!r}, '--device', 'cpu', '--cycles', '1',"
+        " '--batch', '32', '--capacity', '256']\n"
+        f"runpy.run_path({str(example)!r}, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "FOLD vs brute force: recall=" in out.stdout
+    assert out.stdout.splitlines()[-1] == "[]"

@@ -112,7 +112,8 @@ def _jax_prefill(arch: str, cdt: str, eager: bool) -> np.ndarray:
 
 def _port_prefill(arch: str, cdt: str) -> np.ndarray:
     _, tc = _cfgs(arch, cdt)
-    params = params_from_numpy(jax.tree.map(np.asarray, _jax_params(arch)))
+    params = params_from_numpy(jax.tree.map(np.asarray, _jax_params(arch)),
+                               device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _inputs(arch).items()}
     batch["tokens"] = batch["tokens"].long()
     return make_prefill_step(tc)(params, batch).numpy()
@@ -154,8 +155,9 @@ def _jax_decode(arch: str, cdt: str):
 def _port_decode(arch: str, cdt: str):
     _, tc = _cfgs(arch, cdt)
     caches, tok, pos = _decode_inputs(arch, cdt)
-    caches = caches_from_numpy(jax.tree.map(np.asarray, caches))
-    params = params_from_numpy(jax.tree.map(np.asarray, _jax_params(arch)))
+    caches = caches_from_numpy(jax.tree.map(np.asarray, caches), device="cpu")
+    params = params_from_numpy(jax.tree.map(np.asarray, _jax_params(arch)),
+                               device="cpu")
     logits, caches = make_decode_step(tc)(params, caches,
                                           torch.from_numpy(tok).long(),
                                           torch.from_numpy(pos).long())
@@ -214,7 +216,7 @@ def test_params_from_numpy_keeps_names_layout_and_bf16_bits(arch):
     specs = (JW.whisper_param_specs(cfg) if cfg.family == "encdec"
              else JT.param_specs(cfg))
     jp = jax_init_params(specs, jax.random.PRNGKey(3))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     jpaths = [jax.tree_util.keystr(k) for k, _ in
               jax.tree_util.tree_flatten_with_path(jp)[0]]
     tcfg = dataclasses.replace(reduced_config(arch), param_dtype="bfloat16")
@@ -235,6 +237,18 @@ def test_params_from_numpy_keeps_names_layout_and_bf16_bits(arch):
             assert (t.view(torch.int16).numpy() == j.view(np.int16)).all()
         else:
             assert (t.numpy() == j).all()
+
+
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    """With no device the reference's tree goes to cuda, as every port
+    entry point does: without a card the call raises, and `caches_from_numpy`
+    (the same function) too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32)}
+    for fn in (params_from_numpy, caches_from_numpy):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(tree)
+        assert fn(tree, device="cpu")["w"].device.type == "cpu"
 
 
 def test_full_config_sizes_equal_jax_without_allocation():
@@ -327,7 +341,8 @@ def test_loss_matches_jax():
                                     {k: jnp.asarray(v) for k, v in inp.items()})
     batch = {k: torch.from_numpy(v) for k, v in inp.items()}
     batch["tokens"] = batch["tokens"].long()
-    params = params_from_numpy(jax.tree.map(np.asarray, _jax_params(arch)))
+    params = params_from_numpy(jax.tree.map(np.asarray, _jax_params(arch)),
+                               device="cpu")
     tloss, aux = make_loss_fn(tc)(params, batch)
     assert abs(float(tloss) - float(jloss)) <= F32_TOL * abs(float(jloss))
     assert aux["loss"] is tloss

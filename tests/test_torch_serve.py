@@ -56,7 +56,7 @@ def _setup(arch: str, cdt: str):
     enc = jc.family == "encdec"
     jp = jax_init_params(JW.whisper_param_specs(jc) if enc else JT.param_specs(jc),
                          jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     if enc:
         frames = rng.normal(size=(B, jc.encoder_seq, jc.d_model))
         jcaches = JW.whisper_init_caches(jc, B, SMAX)

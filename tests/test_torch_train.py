@@ -74,7 +74,7 @@ def _jax_params(cdt: str = "bfloat16"):
 
 
 def _params():
-    return params_from_numpy(_jax_params())
+    return params_from_numpy(_jax_params(), device="cpu")
 
 
 def _np_batch(i, B=4, S=64):
@@ -130,9 +130,10 @@ def test_opt_update_matches_reference(state_dtype):
     jp, js, jm = jax_opt_update(grads, jstate, params, JaxOptConfig(**oc))
     assert float(jm["grad_norm"]) > 1.0       # the clip is exercised
 
-    tp = params_from_numpy(params)
-    tg = params_from_numpy(grads)
-    ts = OptState(params_from_numpy(m), params_from_numpy(v),
+    tp = params_from_numpy(params, device="cpu")
+    tg = params_from_numpy(grads, device="cpu")
+    ts = OptState(params_from_numpy(m, device="cpu"),
+                  params_from_numpy(v, device="cpu"),
                   torch.tensor(3, dtype=torch.int32))
     p_before = tp["groups"]["p0"]["w"]
     tp2, ts2, tm = opt_update(tg, ts, tp, OptConfig(**oc))
@@ -172,7 +173,7 @@ def _check_step_against_jax(grad_accum: int, i: int) -> None:
         jc, JaxOptConfig(**oc), grad_accum=grad_accum))(
         jp, jax_opt_init(jp, JaxOptConfig(**oc)), jbatch)
 
-    tp = params_from_numpy(jp)
+    tp = params_from_numpy(jp, device="cpu")
     tp2, ts2, tm = make_train_step(tc, OptConfig(**oc),
                                    grad_accum=grad_accum)(
         tp, opt_init(tp, OptConfig(**oc)), _batch(i))

@@ -120,7 +120,7 @@ def port_grads(arch: str, cdt: str, *, remat: bool = True,
     cfg = dataclasses.replace(reduced_config(arch), compute_dtype=cdt)
     batch = {k: torch.from_numpy(v) for k, v in _batch(arch, ids).items()}
     loss, grads = make_grad_fn(cfg, remat=remat)(
-        params_from_numpy(_jax_params(arch)), batch)
+        params_from_numpy(_jax_params(arch), device="cpu"), batch)
     return loss, tree_leaves(grads)
 
 
