@@ -1,0 +1,10 @@
+"""stage.insert_ms: the program's own t_insert timer of `process_batch`
+(each stage ends in a device synchronisation), summed over the window's
+batches and divided by their number."""
+
+
+def read(rec):
+    stages = rec.get("stages")
+    if not stages:
+        return None
+    return sum(s["t_insert"] for s in stages) / len(stages) * 1e3
