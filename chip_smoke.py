@@ -580,8 +580,6 @@ def phase_pipeline(batches, card: str, dev):
     res = dict(batches=len(batches), batch_docs=len(batches[0][0]),
                capacity=cfg.capacity, docs=n_docs, wall_s=wall,
                docs_per_s=n_docs / wall,
-               steady_docs_per_s=sum(len(t) for t, _ in batches[1:])
-               / sum(sum(s[k] for k in med) for s in steady),
                median_stage_s=med, admitted=admitted,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                card=card)

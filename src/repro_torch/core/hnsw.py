@@ -41,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core.bitset import (bitset_add, bitset_nbytes, bitset_test,
                                      bitset_zeros)
 from repro_torch.core.hashing import popc
@@ -110,6 +111,8 @@ def auto_query_chunk(cfg: HNSWConfig) -> int:
 
 
 def _scalar(v: int, device) -> torch.Tensor:
+    """A 0-dim int32 tensor made on the host and uploaded (a sync)."""
+    spans.sync()
     return torch.tensor(v, dtype=torch.int32, device=device)
 
 
@@ -280,6 +283,7 @@ def _visited_add(cfg: HNSWConfig, vs, ids, mask) -> None:
     if cfg.packed_visited:
         bitset_add(vs, ids, mask)
         return
+    spans.sync()
     r, c = torch.nonzero(mask, as_tuple=True)
     vs[r, ids[r, c].to(torch.int64)] = True
 
@@ -364,7 +368,7 @@ def _greedy_step(cfg, state, q, qpc, level: int, cur, curd, active,
     run = active.clone()
     arange = torch.arange(cfg.M0, device=q.device)
     for _ in range(max_steps):
-        rows = torch.nonzero(run).squeeze(1)
+        rows = spans.nonzero(run)
         if rows.numel() == 0:
             break
         nbrs = state.neighbors[level, cur[rows].to(torch.int64)]   # (r, M0)
@@ -410,7 +414,7 @@ def _search_layer(cfg, state, q, qpc, level: int, ef: int,
     while True:
         # each query's own while_loop condition; finished queries freeze
         run = (~expanded).any(-1) & (n_exp < ef) & (steps < ef)
-        if not bool(run.any()):
+        if not spans.truth(run.any()):
             break
         masked = torch.where(expanded, torch.full_like(beam_d, _INF), beam_d)
         _, sel = _sort_take(masked, F)                          # (n, F)
@@ -582,10 +586,12 @@ def _insert_per_doc(cfg: HNSWConfig, state: HNSWState, vecs, pcs, levels,
     over rows is the reference's own order; every search inside it runs
     as the batched code does, on one query."""
     dev = state.vectors.device
-    adm = admit.cpu().numpy()
-    lvl = levels.cpu().numpy()
-    slot = slots.cpu().numpy()
-    entry, top, count = int(state.entry), int(state.top_level), int(state.count)
+    adm = spans.to_host(admit)
+    lvl = spans.to_host(levels)
+    slot = spans.to_host(slots)
+    entry, top, count = (spans.to_int(state.entry),
+                         spans.to_int(state.top_level),
+                         spans.to_int(state.count))
     for i in np.flatnonzero(adm):
         idx, level = int(slot[i]), int(lvl[i])
         state.vectors[idx] = vecs[i]
@@ -611,7 +617,7 @@ def _insert_per_doc(cfg: HNSWConfig, state: HNSWState, vecs, pcs, levels,
                 # distance-sorted, -1 last: the valid prefix of the first
                 # m_l entries are the back-link targets
                 sel = c_ids[0, :m_l]
-                nv = int((sel >= 0).sum())
+                nv = spans.to_int((sel >= 0).sum())
                 if nv:
                     _link_back(cfg, state, idx, lev, sel[:nv], m_l)
                 s_ids, s_d = c_ids[:, :1], c_d[:, :1]
@@ -652,7 +658,7 @@ def _discover_candidates(cfg: HNSWConfig, state: HNSWState, vecs, pcs,
         out_d = torch.full((n, L1, E), _INF, device=dev)
         for lev in range(cfg.max_level, -1, -1):
             active = lev <= torch.minimum(level, state.top_level)
-            rows = torch.nonzero(active).squeeze(1)
+            rows = spans.nonzero(active)
             if rows.numel() == 0:
                 continue
             init_ids, init_d = s_ids[rows], s_d[rows]
@@ -716,7 +722,7 @@ def _merge_candidates(cfg: HNSWConfig, state: HNSWState, levels, admit,
                             torch.full_like(ix, -1, dtype=torch.int32))
         if cfg.select_heuristic:
             fwd = torch.full((B, cfg.M0), -1, dtype=torch.int32, device=dev)
-            rows = torch.nonzero(admit & (levels >= lev)).squeeze(1)
+            rows = spans.nonzero(admit & (levels >= lev))
             if rows.numel():
                 fwd[rows] = _diverse_rows(cfg, state, m_ids[rows], m_d[rows],
                                           m_l)
@@ -747,7 +753,7 @@ def _link_back(cfg: HNSWConfig, state: HNSWState, new_id: int, level: int,
     new_rows = _closest_rows(cfg, cand, d, m_l)
     if cfg.select_heuristic:
         # only overfull rows take the heuristic's rows: score only them
-        over = torch.nonzero((cand >= 0).sum(1) > m_l).squeeze(1)
+        over = spans.nonzero((cand >= 0).sum(1) > m_l)
         if over.numel():
             cd, order = torch.sort(d[over], dim=1, stable=True)
             new_rows[over] = _diverse_rows(
@@ -767,13 +773,13 @@ def _commit_batch(cfg: HNSWConfig, state: HNSWState, levels, admit, slots,
     write happens before the loop: a row's own adjacency row is written
     by no earlier row's back-link (back-link targets are pre-batch nodes
     or EARLIER rows), so hoisting the writes changes nothing."""
-    adm = admit.cpu().numpy()
-    lvl = levels.cpu().numpy()
-    slot = slots.cpu().numpy()
+    adm = spans.to_host(admit)
+    lvl = spans.to_host(levels)
+    slot = spans.to_host(slots)
     # valid back-link targets are a prefix of each distance-sorted sel row
-    n_sel = (sel >= 0).sum(-1).cpu().numpy()                   # (B, L+1)
-    top = int(state.top_level)
-    entry = int(state.entry)
+    n_sel = spans.to_host((sel >= 0).sum(-1))                  # (B, L+1)
+    top = spans.to_int(state.top_level)
+    entry = spans.to_int(state.entry)
     work = []                                   # (row, level) in commit order
     for i in np.flatnonzero(adm):
         for lev in range(min(int(lvl[i]), top), -1, -1):
@@ -781,7 +787,9 @@ def _commit_batch(cfg: HNSWConfig, state: HNSWState, levels, admit, slots,
         if lvl[i] > top:
             entry, top = int(slot[i]), int(lvl[i])
     if work:
+        spans.sync()
         rows = torch.tensor([i for i, _ in work], device=slots.device)
+        spans.sync()
         levs = torch.tensor([lev for _, lev in work], device=slots.device)
         state.neighbors[levs, slots[rows].to(torch.int64)] = fwd[rows, levs]
     for i, lev in work:
@@ -838,25 +846,36 @@ def hnsw_insert_batch(cfg: HNSWConfig, state: HNSWState, vecs: torch.Tensor,
     if seed_ids is not None:
         seed_ids = torch.as_tensor(seed_ids, device=dev).to(
             torch.int32)[:, :cfg.ef_construction - 1].contiguous()
-    cand_ids, cand_d = _discover_candidates(cfg, state, vecs, pcs, levels,
-                                            seed_ids, chunk)
-    # new nodes link only to LIVE candidates
-    cand_dead = (state.dead[torch.clamp(cand_ids, min=0).to(torch.int64)]
-                 & (cand_ids >= 0))
-    cand_ids = torch.where(cand_dead, torch.full_like(cand_ids, -1), cand_ids)
-    cand_d = torch.where(cand_dead, torch.full_like(cand_d, _INF), cand_d)
-    pair_d = _pairwise_dists(cfg, vecs, pcs, chunk)
+    # the three phases, each a span of `repro_torch.spans` (under an open
+    # record, each ends in a device sync)
+    with spans.span("insert.discover") as sp:
+        cand_ids, cand_d = _discover_candidates(cfg, state, vecs, pcs,
+                                                levels, seed_ids, chunk)
+        # new nodes link only to LIVE candidates
+        cand_dead = (state.dead[torch.clamp(cand_ids, min=0).to(torch.int64)]
+                     & (cand_ids >= 0))
+        cand_ids = torch.where(cand_dead, torch.full_like(cand_ids, -1),
+                               cand_ids)
+        cand_d = torch.where(cand_dead, torch.full_like(cand_d, _INF), cand_d)
+        pair_d = _pairwise_dists(cfg, vecs, pcs, chunk)
+        sp.ready(pair_d)
 
-    rows = torch.nonzero(admit).squeeze(1)
-    tgt = slots[rows].to(torch.int64)
-    state.vectors[tgt] = vecs[rows]
-    state.pb[tgt] = pcs[rows].to(torch.int32)
-    state.node_level[tgt] = levels[rows]
-    state.dead[tgt] = False
-    state = state._replace(count=new_count)
-    fwd, sel = _merge_candidates(cfg, state, levels, admit, slots, cand_ids,
-                                 cand_d, pair_d)
-    state = _commit_batch(cfg, state, levels, admit, slots, fwd, sel)
+    with spans.span("insert.merge") as sp:
+        rows = spans.nonzero(admit)
+        tgt = slots[rows].to(torch.int64)
+        state.vectors[tgt] = vecs[rows]
+        state.pb[tgt] = pcs[rows].to(torch.int32)
+        state.node_level[tgt] = levels[rows]
+        spans.sync()        # a Python scalar stored through an index tensor
+        state.dead[tgt] = False
+        state = state._replace(count=new_count)
+        fwd, sel = _merge_candidates(cfg, state, levels, admit, slots,
+                                     cand_ids, cand_d, pair_d)
+        sp.ready(sel)
+
+    with spans.span("insert.commit") as sp:
+        state = _commit_batch(cfg, state, levels, admit, slots, fwd, sel)
+        sp.ready(state.neighbors)
     return state, n_ins
 
 

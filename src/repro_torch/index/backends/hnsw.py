@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.analysis.programs import (ProgramBudget, ProgramSpec,
                                            register_programs)
 from repro_torch.core.bitmap import pairwise_hamming, pairwise_minhash_jaccard
@@ -39,6 +40,7 @@ from repro_torch.core.hnsw import (HNSWConfig, HNSWState, hnsw_compact,
                                    sample_levels, state_from_numpy,
                                    state_to_numpy)
 from repro_torch.device import resolve_device
+from repro_torch.index.pipeline import host
 from repro_torch.index.protocol import BATCH_FIRST, DedupBackend, SigBatch, SigSpec
 from repro_torch.index.registry import register
 
@@ -105,9 +107,9 @@ class _HNSWLifecycle(DedupBackend):
         if self._known_count + self._dispatched_bound + fresh <= cap:
             self._dispatched_bound += fresh
             return
-        self._known_count = int(self.state.count)  # foldlint: sync-ok(rare re-anchor: only when the sync-free bound says the batch might not fit)
+        self._known_count = spans.to_int(self.state.count)  # foldlint: sync-ok(rare re-anchor: only when the sync-free bound says the batch might not fit)
         self._dispatched_bound = 0
-        n_keep = int(torch.as_tensor(keep).sum())  # foldlint: sync-ok(already syncing to re-anchor; exact kept count is free here)
+        n_keep = spans.to_int(torch.as_tensor(keep).sum())  # foldlint: sync-ok(already syncing to re-anchor; exact kept count is free here)
         fresh = max(0, n_keep - offered)
         if self._known_count + fresh > cap:
             raise RuntimeError(
@@ -129,7 +131,7 @@ class _HNSWLifecycle(DedupBackend):
     def inserted(self) -> int:
         """LIVE document count: admitted - deleted (a host sync on one
         reduction)."""
-        return int(((self.state.node_level >= 0) & ~self.state.dead).sum())  # foldlint: sync-ok(occupancy poll; one reduction)
+        return spans.to_int(((self.state.node_level >= 0) & ~self.state.dead).sum())  # foldlint: sync-ok(occupancy poll; one reduction)
 
     # -- deletion / compaction ----------------------------------------------
     @property
@@ -197,15 +199,15 @@ class _HNSWLifecycle(DedupBackend):
         take, self._free = free[:offered], free[offered:]
         pad = np.full(B, -1, np.int32)
         pad[:offered] = take
-        return torch.from_numpy(pad).to(self.device), take
+        return spans.upload(pad, self.device), take
 
     def _log_slots(self, keep, free_host):
         """Host mirror of the device slot assignment: the j-th kept row
         lands in free_host[j] while frees last, then in consecutive fresh
         slots from the pre-insert high-water count. Returns (order, slots)."""
-        order = np.flatnonzero(torch.as_tensor(keep).cpu().numpy())  # foldlint: sync-ok(slot logging is opt-in; lifecycle needs the host mask)
+        order = np.flatnonzero(host(keep))  # foldlint: sync-ok(slot logging is opt-in; lifecycle needs the host mask)
         if self._count_hw is None:
-            self._count_hw = int(self.state.count)  # foldlint: sync-ok(one-time count-mirror seed; advanced host-side after)
+            self._count_hw = spans.to_int(self.state.count)  # foldlint: sync-ok(one-time count-mirror seed; advanced host-side after)
         t = min(len(order), len(free_host))
         slots = np.concatenate([
             np.asarray(free_host[:t], np.int64),  # foldlint: sync-ok(host free-list bookkeeping)
@@ -224,8 +226,8 @@ class _HNSWLifecycle(DedupBackend):
             return
         order, slots = self._log_slots(keep, free_host)
         if sig_store is not None and len(order):
-            dev_slots = torch.from_numpy(slots.astype(np.int64)).to(self.device)
-            rows = torch.from_numpy(order).to(self.device)
+            dev_slots = spans.upload(slots.astype(np.int64), self.device)
+            rows = spans.upload(order, self.device)
             sig_store[dev_slots] = sig.sigs[rows]
         if self.track_slots:
             q = list(getattr(self, "_slots_q", []))
@@ -378,7 +380,8 @@ class HNSWBitmapBackend(_HNSWLifecycle):
         self._record_insert(sig, keep, free_host)
         self.state, _ = hnsw_insert_batch(
             self.hnsw_cfg, self.state, sig.bitmaps, sig.pcs,
-            levels.to(self.device), torch.as_tensor(keep, device=self.device),
+            spans.upload(levels, self.device),
+            spans.to_device(keep, self.device),
             seed_ids=self._seeds_from(search_ids), free_slots=free_dev)
         return self.state.count     # timing handle
 
@@ -476,8 +479,9 @@ class RawHNSWBackend(_HNSWLifecycle):
         self._record_insert(sig, keep, free_host)
         pcs = torch.zeros(B, dtype=torch.int32, device=self.device)
         self.state, _ = hnsw_insert_batch(
-            self.hnsw_cfg, self.state, sig.sigs, pcs, levels.to(self.device),
-            torch.as_tensor(keep, device=self.device),
+            self.hnsw_cfg, self.state, sig.sigs, pcs,
+            spans.upload(levels, self.device),
+            spans.to_device(keep, self.device),
             seed_ids=self._seeds_from(search_ids), free_slots=free_dev)
         return self.state.count     # timing handle
 

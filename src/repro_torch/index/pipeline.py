@@ -11,7 +11,9 @@ front door (`FoldConfig.exact_filter`) and the read-only `query`; the
 backend contributes ③ search and ⑤ insert and the capacity, snapshot and
 deletion lifecycle, which the pipeline delegates. `process_batch` is the
 blocking composition: each stage ends in a device synchronisation so its
-wall-clock time is the stage's own.
+wall-clock time is the stage's own. Its stats are the open record of
+`repro_torch.spans` while it runs: the stages are spans, and the card
+syncs under each are counted (stats["spans"]).
 
 Host-side and device results. The device backends (`hnsw`, `hnsw_raw`,
 `brute`) return tensors from `search`; the host-side ones (`dpk`,
@@ -32,6 +34,7 @@ from typing import TYPE_CHECKING, Any, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.index.protocol import (BATCH_FIRST, INDEX_FIRST, DedupBackend,
                                         SigBatch, StepResult)
 
@@ -66,16 +69,16 @@ def greedy_leader_split(sim: torch.Tensor, tau: float,
     over one copy of the (B, B) `sim >= tau` mask (tau is compared in
     float32, as the reference's weakly typed threshold is)."""
     B = sim.shape[0]
-    ge = (sim >= tau).cpu().numpy()
+    ge = spans.to_host(sim >= tau)
     elig = (np.ones(B, bool) if eligible is None
-            else torch.as_tensor(eligible).cpu().numpy().astype(bool))
+            else host(eligible).astype(bool))
     keep = np.zeros(B, bool)
     hit = np.zeros(B, bool)
     for i in range(B):
         hit[i] = bool((ge[i, :i] & keep[:i]).any())
         keep[i] = elig[i] and not hit[i]
     dev = sim.device
-    return torch.from_numpy(keep).to(dev), torch.from_numpy(hit).to(dev)
+    return spans.upload(keep, dev), spans.upload(hit, dev)
 
 
 def greedy_leader(sim: torch.Tensor, tau: float,
@@ -84,16 +87,10 @@ def greedy_leader(sim: torch.Tensor, tau: float,
     return greedy_leader_split(sim, tau, eligible)[0]
 
 
-def _ready(x: Any) -> None:
-    """Wait for the device work behind a CUDA tensor; no-op otherwise."""
-    if isinstance(x, torch.Tensor) and x.is_cuda:
-        torch.cuda.synchronize(x.device)
-
-
 def host(x: Any) -> np.ndarray:
-    """A step's array on the host: a tensor is copied back, a numpy array
-    (a host-side backend's result) passes through."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A step's array on the host: a tensor is copied back (a counted
+    sync), a numpy array (a host-side backend's result) passes through."""
+    return spans.to_host(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _beside(mask: Any, ref: Any) -> Any:
@@ -101,7 +98,7 @@ def _beside(mask: Any, ref: Any) -> Any:
     numpy (a host-side backend), else a tensor on ref's device."""
     if isinstance(ref, np.ndarray):
         return host(mask)
-    return torch.as_tensor(mask, device=ref.device)
+    return spans.to_device(mask, ref.device)
 
 
 class DedupPipeline:
@@ -184,9 +181,11 @@ class DedupPipeline:
         from repro_torch.core.shingle import shingle_hashes, token_tensors
         from repro_torch.kernels import ops
         spec = self._spec
-        tokens, lengths = token_tensors(tokens, lengths)
-        sh = shingle_hashes(tokens.to(self.device), lengths.to(self.device),
-                            spec.shingle_n)
+        # host documents go up to the device (a counted sync each)
+        tokens, lengths = (
+            spans.upload(t, self.device) if t.device.type == "cpu"
+            else t.to(self.device) for t in token_tensors(tokens, lengths))
+        sh = shingle_hashes(tokens, lengths, spec.shingle_n)
         sigs = bitmaps = pcs = None
         if self._seeds is not None:
             sigs = ops.minhash(sh, self._seeds, use_kernel=spec.use_kernel)
@@ -210,9 +209,10 @@ class DedupPipeline:
 
         valid: optional (B,) bool — False rows are never admitted.
         timers: a dict makes every stage block and record its wall-clock
-        time under t_in_batch / t_search / t_insert; a fused backend's
-        step is timed whole, under t_fused_step (the three split stages
-        then read 0)."""
+        time under t_in_batch / t_search / t_insert, and is the open
+        record of `repro_torch.spans` for the step (its spans and card
+        syncs under timers["spans"]); a fused backend's step is timed
+        whole, under t_fused_step (the three split stages then read 0)."""
         fused = getattr(self.backend, "fused_step", None)
         if fused is not None:
             if timers is None:
@@ -222,82 +222,68 @@ class DedupPipeline:
             timers.setdefault("t_insert", 0.0)
             t0 = time.perf_counter()
             res = fused(sig, valid=valid)
-            _ready(res.keep)
+            spans.ready(res.keep)
             timers["t_fused_step"] = time.perf_counter() - t0
             return res
         order = self.backend.order
-        if order == BATCH_FIRST:
-            return self._step_batch_first(sig, valid, timers)
-        if order == INDEX_FIRST:
-            return self._step_index_first(sig, valid, timers)
+        with spans.span("step", record=timers):
+            if order == BATCH_FIRST:
+                return self._step_batch_first(sig, valid)
+            if order == INDEX_FIRST:
+                return self._step_index_first(sig, valid)
         raise ValueError(f"unknown admission order {order!r}")
 
-    def _step_batch_first(self, sig: SigBatch, valid: Any,
-                          timers: dict[str, Any] | None) -> StepResult:
+    # The split stages. Each is a span that, under an open record (a
+    # `timers` dict), ends in a device sync and records its seconds under
+    # its t_* key.
+    def _step_batch_first(self, sig: SigBatch, valid: Any) -> StepResult:
         be = self.backend
-        block = timers is not None
 
-        t0 = time.perf_counter()
-        keep_in_batch = greedy_leader(be.batch_sim(sig), be.tau_batch)
-        if block:
-            _ready(keep_in_batch)
-            timers["t_in_batch"] = time.perf_counter() - t0
+        with spans.span("in_batch", "t_in_batch") as sp:
+            keep_in_batch = greedy_leader(be.batch_sim(sig), be.tau_batch)
+            sp.ready(keep_in_batch)
 
-        t0 = time.perf_counter()
-        ids, sims = be.search(sig)
-        dup_index = (sims >= be.tau_index).any(-1)
-        if block:
-            _ready(dup_index)
-            timers["t_search"] = time.perf_counter() - t0
+        with spans.span("search", "t_search") as sp:
+            ids, sims = be.search(sig)
+            dup_index = (sims >= be.tau_index).any(-1)
+            sp.ready(dup_index)
 
         keep_in_batch = _beside(keep_in_batch, sims)
         keep = keep_in_batch & ~dup_index
         if valid is not None:
             keep = keep & _beside(valid, sims)
 
-        t0 = time.perf_counter()
-        handle = self._insert(sig, keep, ids)
-        if block:
-            _ready(handle)
-            timers["t_insert"] = time.perf_counter() - t0
+        with spans.span("insert", "t_insert") as sp:
+            sp.ready(self._insert(sig, keep, ids))
         return StepResult(keep=keep, keep_in_batch=keep_in_batch,
                           ids=ids, sims=sims)
 
-    def _step_index_first(self, sig: SigBatch, valid: Any,
-                          timers: dict[str, Any] | None) -> StepResult:
+    def _step_index_first(self, sig: SigBatch, valid: Any) -> StepResult:
         """Join-style admission: corpus duplicates are excluded BEFORE the
         in-batch sweep, so an index duplicate never suppresses a later
         in-batch near-duplicate. The sweep is the backend's own
         `in_batch_keep` when it has one."""
         be = self.backend
-        block = timers is not None
 
-        t0 = time.perf_counter()
-        ids, sims = be.search(sig)
-        dup_index = host((sims >= be.tau_index).any(-1))
-        if block:
-            timers["t_search"] = time.perf_counter() - t0
+        with spans.span("search", "t_search"):
+            ids, sims = be.search(sig)
+            dup_index = host((sims >= be.tau_index).any(-1))
 
         eligible = ~dup_index
         if valid is not None:
             eligible = eligible & host(valid)
 
-        t0 = time.perf_counter()
-        if hasattr(be, "in_batch_keep"):
-            keep, hit = be.in_batch_keep(sig, eligible)
-        else:
-            keep, hit = greedy_leader_split(be.batch_sim(sig), be.tau_batch,
-                                            eligible)
-        keep, hit = _beside(keep, sims), _beside(hit, sims)
-        if block:
-            _ready(keep)
-            timers["t_in_batch"] = time.perf_counter() - t0
+        with spans.span("in_batch", "t_in_batch") as sp:
+            if hasattr(be, "in_batch_keep"):
+                keep, hit = be.in_batch_keep(sig, eligible)
+            else:
+                keep, hit = greedy_leader_split(be.batch_sim(sig),
+                                                be.tau_batch, eligible)
+            keep, hit = _beside(keep, sims), _beside(hit, sims)
+            sp.ready(keep)
 
-        t0 = time.perf_counter()
-        handle = self._insert(sig, keep, ids)
-        if block:
-            _ready(handle)
-            timers["t_insert"] = time.perf_counter() - t0
+        with spans.span("insert", "t_insert") as sp:
+            sp.ready(self._insert(sig, keep, ids))
         return StepResult(keep=keep, keep_in_batch=~hit, ids=ids, sims=sims)
 
     def _exact_hits(self, tokens: Any, lengths: Any
@@ -331,6 +317,16 @@ class DedupPipeline:
         counted as batch or index drops; an all-hit batch pays no device
         work at all."""
         stats: dict[str, Any] = {}
+        # the fused route is timed whole and keeps the reference's keys
+        split = getattr(self.backend, "fused_step", None) is None
+        with spans.span("batch", record=stats, attach=split):
+            keep = self._process(tokens, lengths, stats)
+        if split:
+            spans.finished(stats)
+        return keep, stats
+
+    def _process(self, tokens: Any, lengths: Any,
+                 stats: dict[str, Any]) -> np.ndarray:
         count0 = self.backend.inserted
 
         hashes = None
@@ -349,14 +345,13 @@ class DedupPipeline:
                     stats[key] = 0.0
                 stats.update(n_batch_drop=0, n_index_drop=0, n_insert=0,
                              count=count0, n_overflow=0)
-                return np.zeros(B, bool), stats
+                return np.zeros(B, bool)
 
-        t0 = time.perf_counter()
-        sig = self.signatures(tokens, lengths)
-        _ready(next(a for a in reversed(sig) if a is not None))
-        stats["t_signature"] = time.perf_counter() - t0
+        with spans.span("signature", "t_signature") as sp:
+            sig = self.signatures(tokens, lengths)
+            sp.ready(next(a for a in reversed(sig) if a is not None))
 
-        valid = torch.from_numpy(~hit) if hit.any() else None
+        valid = ~hit if hit.any() else None
         res = self.dedup_step(sig, valid=valid, timers=stats)
 
         keep = host(res.keep)
@@ -372,7 +367,7 @@ class DedupPipeline:
         # land; the built-in backends refuse such a batch, so this stays 0
         stats["n_overflow"] = max(
             0, stats["n_insert"] - (stats["count"] - count0))
-        return keep, stats
+        return keep
 
     # -- read-only query ----------------------------------------------------
     def query(self, tokens: Any, lengths: Any = None) -> QueryResult:

@@ -22,6 +22,8 @@ from typing import Iterable, NamedTuple
 
 import numpy as np
 
+from repro_torch import spans
+
 __all__ = ["MicroBatch", "MicroBatcher", "Backpressure",
            "default_batch_buckets", "pow2_buckets"]
 
@@ -188,6 +190,9 @@ class MicroBatcher:
         return out
 
     def _emit(self, docs: list[tuple[int, np.ndarray, float]]) -> MicroBatch:
+        """Pad `docs` into a micro-batch; its documents' mean wait since
+        their `add` goes to the batch's record in `repro_torch.spans`."""
+        now = self._clock()
         n = len(docs)
         B = _bucket_up(n, self.batch_buckets)
         L = _bucket_up(max((len(t) for _, t, _ in docs), default=1),
@@ -202,4 +207,6 @@ class MicroBatcher:
             valid[i] = True
             doc_ids[i] = did
         self.emitted_shapes.add((B, L))
+        if n:
+            spans.emitted(doc_ids, n, sum(now - a for _, _, a in docs) / n)
         return MicroBatch(tokens, lengths, valid, doc_ids, n)

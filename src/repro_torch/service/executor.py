@@ -40,6 +40,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.index.pipeline import DedupPipeline, host
 from repro_torch.index.protocol import StepResult
 from repro_torch.service.batcher import MicroBatch
@@ -57,6 +58,10 @@ class BatchOutcome:
     sims: np.ndarray           # (B, k) f32
     wall_s: float              # submit -> materialize (pipelined latency)
     stage_times: dict | None = None   # Fig. 7 per-stage seconds (sampled)
+    # wall_s = dispatch_s + held_s: submit's own time, until dedup_step
+    # returns, then the wait until the verdicts have left the device
+    dispatch_s: float = 0.0
+    held_s: float = 0.0
 
 
 class PipelinedExecutor:
@@ -71,7 +76,12 @@ class PipelinedExecutor:
     timer mode — the Fig. 7 per-stage breakdown (t_in_batch / t_search /
     t_insert) lands in that batch's BatchOutcome.stage_times. The very
     first batch is never sampled (it pays one-time set-up: the kernels'
-    build and load on the card).
+    build and load on the card). A sampled batch's timers are also the
+    open record of `repro_torch.spans`: its spans and card syncs land
+    under stage_times["spans"].
+
+    Every batch's dispatch and hold (`BatchOutcome.dispatch_s`, `held_s`)
+    also go into `repro_torch.spans.recent()`'s record of the batch.
     """
 
     def __init__(self, pipe: DedupPipeline, depth: int = 2,
@@ -82,9 +92,10 @@ class PipelinedExecutor:
         self.on_outcome = on_outcome
         self.timers_every = max(int(timers_every), 0)
         self._submitted = 0
+        # (batch, step result, submit time, dispatched time, timers)
         self._inflight: collections.deque[tuple[MicroBatch, StepResult,
-                                                float, dict | None]] = \
-            collections.deque()
+                                                float, float, dict | None]] \
+            = collections.deque()
 
     @property
     def inflight(self) -> int:
@@ -94,7 +105,7 @@ class PipelinedExecutor:
     def inflight_docs(self) -> int:
         """Valid docs dispatched but not yet materialized (backlog
         accounting for the bounded-admission check)."""
-        return sum(mb.n_docs for mb, _, _, _ in self._inflight)
+        return sum(mb.n_docs for mb, *_ in self._inflight)
 
     def submit(self, mb: MicroBatch) -> None:
         """Dispatch one micro-batch; may materialize older ones to keep the
@@ -105,7 +116,7 @@ class PipelinedExecutor:
         self._submitted += 1
         sig = self.pipe.signatures(mb.tokens, mb.lengths)
         res = self.pipe.dedup_step(sig, valid=mb.valid, timers=timers)
-        self._inflight.append((mb, res, t0, timers))
+        self._inflight.append((mb, res, t0, time.perf_counter(), timers))
         while len(self._inflight) > self.depth:
             self._collect_one()
 
@@ -115,19 +126,19 @@ class PipelinedExecutor:
             self._collect_one()
 
     def _collect_one(self) -> BatchOutcome:
-        mb, res, t0, timers = self._inflight.popleft()
+        mb, res, t0, t1, timers = self._inflight.popleft()
         # THE materialization point: the verdicts leave the device here,
         # and nowhere else on the path (a host-side backend's are numpy
         # already)
+        keep, keep_in_batch = host(res.keep), host(res.keep_in_batch)
+        ids, sims = host(res.ids), host(res.sims)
+        dispatch_s, held_s = t1 - t0, time.perf_counter() - t1
         out = BatchOutcome(
-            batch=mb,
-            keep=host(res.keep),
-            keep_in_batch=host(res.keep_in_batch),
-            ids=host(res.ids),
-            sims=host(res.sims),
-            wall_s=time.perf_counter() - t0,
-            stage_times=timers,
-        )
+            batch=mb, keep=keep, keep_in_batch=keep_in_batch, ids=ids,
+            sims=sims, wall_s=dispatch_s + held_s, stage_times=timers,
+            dispatch_s=dispatch_s, held_s=held_s)
+        spans.materialized(mb.doc_ids, mb.n_docs, dispatch_s, held_s,
+                           timers)
         if self.on_outcome is not None:
             self.on_outcome(out)
         return out

@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core.dedup import FoldConfig
 from repro_torch.core.hnsw import program_cache_sizes
 from repro_torch.index import make_pipeline, validate_opts
@@ -322,7 +323,8 @@ class DedupService:
         self.metrics.observe("batch_ms", out.wall_s * 1e3)
         if out.stage_times:      # sampled Fig. 7 breakdown (stage_timer_every)
             for key, secs in out.stage_times.items():
-                self.metrics.observe(f"{key}_ms", secs * 1e3)
+                if key != spans.KEY:
+                    self.metrics.observe(f"{key}_ms", secs * 1e3)
         self.metrics.inc("docs_out", mb.n_docs)
         best = out.sims.argmax(axis=-1)
         rows = np.arange(len(best))

@@ -8,6 +8,11 @@ with only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import collections
+import os
+import traceback
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -461,6 +466,81 @@ def test_cuda_sharded_matches_cpu(cuda, tmp_path, shards):
     name = "step_00000001/arrays.msgpack"
     assert (tmp_path / "cuda" / name).read_bytes() == \
         (tmp_path / "cpu" / name).read_bytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["search", "insert", "process_batch"])
+def test_cuda_sync_counter_equals_sync_debug_mode(cuda, call, monkeypatch):
+    """`repro_torch.spans` counts, under an open record, exactly the
+    synchronizations that `torch.cuda.set_sync_debug_mode` reports for the
+    same call, less the stage timers' own waits (`spans.ready`)."""
+    from repro_torch import spans
+    from repro_torch.core.dedup import FoldConfig, FoldPipeline
+    from repro_torch.core.hnsw import (hnsw_insert_batch, hnsw_search,
+                                       sample_levels)
+    pipe = FoldPipeline(FoldConfig(capacity=4096, M=8, M0=16,
+                                   ef_construction=32, ef_search=32),
+                        device=cuda)
+    batches = _cc_batches(4, 96)
+    for tok, ln in batches[:3]:
+        pipe.process_batch(tok, ln)
+    be = pipe.backend
+    sig = pipe.signatures(*batches[3])
+    ids, _ = be.search(sig)
+    levels = torch.from_numpy(sample_levels(96, be.hnsw_cfg, seed=7)).to(cuda)
+    mask = torch.arange(96, device=cuda) % 3 != 0
+    stats: dict = {}
+
+    def run():
+        if call == "process_batch":
+            stats.update(pipe.process_batch(*batches[3])[1])
+            return
+        with spans.span(call, record=stats):
+            if call == "search":
+                hnsw_search(be.hnsw_cfg, be.state, sig.bitmaps, k=4)
+            else:
+                hnsw_insert_batch(be.hnsw_cfg, be.state, sig.bitmaps,
+                                  sig.pcs, levels, mask, seed_ids=ids)
+
+    ready, sites = [], []
+    sync, wait = spans.sync, spans.ready
+
+    def counted():
+        frame = next(f for f in reversed(traceback.extract_stack()[:-1])
+                     if not f.filename.endswith("spans.py"))
+        sites.append(f"{os.path.basename(frame.filename)}:{frame.lineno}")
+        sync()
+
+    def timed(x):
+        ready.append(1)
+        wait(x)
+
+    def debug_mode(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return [w for w in caught
+                if "synchronizing CUDA operation" in str(w.message)]
+
+    monkeypatch.setattr(spans, "sync", counted)
+    monkeypatch.setattr(spans, "ready", timed)
+    torch.cuda.synchronize()
+    per_wait = len(debug_mode(lambda: torch.cuda.synchronize(cuda)))
+    caught = debug_mode(run)
+    n = sum(e["syncs"] for e in stats[spans.KEY].values())
+    assert n == len(sites) > 0
+    assert len(caught) - per_wait * len(ready) == n, (
+        f"sync-debug sites {collections.Counter(_where(w) for w in caught)}; "
+        f"counted sites {collections.Counter(sites)}; timer waits "
+        f"{len(ready)}, each {per_wait} sync-debug syncs")
+
+
+def _where(w) -> str:
+    return f"{os.path.basename(w.filename)}:{w.lineno}"
 
 
 @pytest.mark.gpu
