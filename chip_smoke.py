@@ -8,7 +8,12 @@ Phases (any failure exits non-zero and prints no result):
      against its plain PyTorch version on the card, and K3 (which recounts
      the popcounts) against K2 fed them; a kernel's time is its device time
      in a torch.profiler trace, the plain version's from CUDA events around
-     back-to-back calls
+     back-to-back calls. K5 (the insert's back-links) is checked after
+     phase 3, whose state it needs: the schedule of a fresh 512-doc
+     batch's commit on a copy of that state, through K5 on the card and
+     its plain version on the CPU (bit-equal rows, under the main path's
+     config, the heuristic and the other two metrics), its device time
+     and its bound from the schedule's bytes
   2. parity — FoldPipeline on cuda and on cpu over the same batches must
      give identical keep masks and index states (default config, and the
      Fig. 8 NO CACHE arm, which is the path that runs kernel K3)
@@ -62,7 +67,8 @@ Phases (any failure exits non-zero and prints no result):
      interface, argument/output bytes, aliasing, float64 outputs,
      data-dependent op counts and outputs, and no budget violation on the
      card; per spec the card's syncs (sync-debug mode), kernel launches,
-     temp bytes and wall ms; K1-K4 never launched. (b) the main path's own
+     temp bytes and wall ms; K1-K4 never launched, K5 (the commit's
+     back-links) by the inserting specs alone. (b) the main path's own
      programs at production geometry: on a copy of phase 3's 2**20-slot
      state, hnsw_search and hnsw_insert_batch of phase 3's last batch again
      (what its profiled batch ran; nothing admitted) and of a fresh 512-doc
@@ -118,8 +124,8 @@ Phases (any failure exits non-zero and prints no result):
      (a) quickstart, (b) service_demo, (c) cluster_demo and (d)
      distributed_dedup at their defaults, with the service batcher's and
      the cluster's tenant clocks frozen at 0: docs/s, recall, FP, p99
-     batch ms; K1 and K2 launched in (a)-(c), K1 4 times and no other
-     kernel in (d). (e) train_dedup_lm at demo-124m, batch 64 x seq 256,
+     batch ms; K1 and K2 launched in (a)-(c), K1 4 times, K5 in the
+     shards' commits and no other kernel in (d). (e) train_dedup_lm at demo-124m, batch 64 x seq 256,
      5 steps (the example's 300 cut by the run's time limit): loss first
      -> last, each step timed on the card, tokens/s, peak memory, dedup
      admitted/in; K1 and K2 once per ingest pull. (f) serve_demo at
@@ -309,13 +315,15 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def trace_ms(fn, reps: int, kernel: str) -> float:
+def trace_ms(fn, reps: int, kernel: str, least: int | None = None) -> float:
     """Mean device time of `kernel` per call of `fn`, from the kernel
     events of a torch.profiler trace of `reps` calls: the kernel body
     alone, not the host's cost of issuing it. Fails unless the wrappers
     launched exactly one kernel per call; a trace that recorded fewer
-    kernel events than that (the profiler drops events now and then) is
-    taken again, and after three incomplete traces the script fails."""
+    than `least` kernel events (default: one per call; the profiler drops
+    events now and then) is taken again, and after three incomplete
+    traces the script fails. A mean over fewer events than calls is
+    logged with its count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -342,8 +350,11 @@ def trace_ms(fn, reps: int, kernel: str) -> float:
             events = json.load(f)["traceEvents"]
         kernels = [e for e in events if e.get("cat") == "kernel"]
         durs = [e["dur"] for e in kernels if kernel in e.get("name", "")]
-        if len(durs) == reps:
-            return sum(durs) / reps / 1e3
+        if len(durs) == reps or (least and least <= len(durs) < reps):
+            if len(durs) < reps:
+                log(f"trace of {kernel}: the mean of {len(durs)} kernel "
+                    f"events for {reps} launches")
+            return sum(durs) / len(durs) / 1e3
         seen = sorted({e.get("name", "")[:60] for e in kernels})
         log(f"trace {attempt + 1} of {kernel} recorded {len(durs)} kernel "
             f"events for {reps} launches; kernels seen: {seen}")
@@ -491,6 +502,122 @@ def phase_kernels(dev, corpus_batch) -> tuple[list, dict]:
     if bad:
         fail(f"kernels disagree with their plain versions: {bad} {recs}")
     return recs, {"bitmaps": bitmaps}
+
+
+def phase_commit_kernel(main_state, fresh_batch, dev) -> dict:
+    """Phase 1 for K5, the insert's back-links, which needs phase 3's
+    state: on a copy of it, hnsw_insert_batch of a fresh 512-doc batch as
+    the pipeline calls it (steps ③ and ⑤), its commit's schedule caught at
+    `link_back`. That schedule, from the rows the commit met, through K5
+    on the card and through its plain version on a CPU copy: bit-equal
+    rows under the main path's config, and under the heuristic and the
+    other two metrics (any of them is defined on the same words). K5's
+    device time from a trace, each call first restoring the rows."""
+    import torch
+
+    from repro_torch.core import hnsw
+    from repro_torch.core.dedup import (FoldConfig, FoldPipeline, bitmap_tau,
+                                        in_batch_dedup)
+    from repro_torch.core.hnsw import (HNSWState, hnsw_insert_batch,
+                                       hnsw_search, sample_levels)
+    from repro_torch.kernels import hnsw_commit
+
+    cfg = FoldConfig(capacity=main_state.vectors.shape[0])
+    hcfg = cfg.hnsw()
+    state = HNSWState(*(t.clone() for t in main_state))
+    sig = FoldPipeline(FoldConfig(capacity=PROGRAM_BATCH),
+                       device=dev).signatures(*fresh_batch)
+    ids, sims = hnsw_search(hcfg, state, sig.bitmaps, k=cfg.k)
+    keep = in_batch_dedup(sig.bitmaps, sig.pcs, bitmap_tau(cfg)) & \
+        ~(sims >= bitmap_tau(cfg)).any(-1)
+    levels = torch.from_numpy(sample_levels(
+        PROGRAM_BATCH, hcfg, seed=PIPE_BATCHES + cfg.seed + 3)).to(dev)
+    caught = []
+    apply = hnsw.link_back
+
+    def catch(c, st, sched):
+        caught.append((st.neighbors.clone(), sched))
+        apply(c, st, sched)
+
+    hnsw.link_back = catch
+    try:
+        state, n = hnsw_insert_batch(hcfg, state, sig.bitmaps, sig.pcs,
+                                     levels, keep,
+                                     seed_ids=ids.to(torch.int32))
+    finally:
+        hnsw.link_back = apply
+    if len(caught) != 1 or int(n) == 0:
+        fail(f"K5 check: {len(caught)} commits for {int(n)} admitted rows")
+    nb0, sched = caught[0]
+    if sched.groups == 0:
+        fail("K5 check: an empty schedule")
+    cpu_state = HNSWState(*(t.cpu() for t in state))
+    cpu_sched = type(sched)(*(t.cpu() for t in sched))
+    sizes = np.diff(cpu_sched.start.numpy())
+    variants = [("bitmap_jaccard", False), ("bitmap_jaccard", True),
+                ("minhash_jaccard", False), ("hamming", False)]
+    diffs, plain_s = {}, {}
+    for metric, heur in variants:
+        c = hcfg._replace(metric=metric, select_heuristic=heur)
+        card = state._replace(neighbors=nb0.clone())
+        hnsw_commit.link_back_kernel(c, card, sched)
+        host = cpu_state._replace(neighbors=nb0.cpu())
+        t0 = time.perf_counter()
+        hnsw._link_back_plain(c, host, cpu_sched)
+        plain_s[f"{metric}/{int(heur)}"] = time.perf_counter() - t0
+        diffs[f"{metric}/{int(heur)}"] = int(
+            (card.neighbors.cpu() != host.neighbors).sum())
+        if (metric, heur) == (hcfg.metric, hcfg.select_heuristic) and \
+                not torch.equal(card.neighbors, state.neighbors):
+            fail("K5 check: the replayed schedule left other rows than the "
+                 "insert's own commit")
+    if any(diffs.values()):
+        fail(f"K5 check: card and plain version differ: {diffs}")
+
+    # device time: each call restores the rows the schedule rewrites, so
+    # call_ms holds the restore too (restore_ms alone); the profiler has
+    # recorded 25-28 of 30 kernel events here, so the mean takes at least 20
+    scratch = nb0.clone()
+    run = state._replace(neighbors=scratch)
+    at = (sched.level, sched.target)
+    rows0 = nb0[at]
+
+    def restore():
+        scratch[at] = rows0
+
+    def call():
+        restore()
+        hnsw_commit.link_back_kernel(hcfg, run, sched)
+
+    # bytes: each node the schedule touches (target, new id, row entry)
+    # read once, as its W words and popcount; each group's row read and
+    # written; the schedule. Operations: per distance W words of AND,
+    # popcount and add; per link a rank of M0 + 1 candidates against each
+    # other
+    lv, tg = cpu_sched.level.numpy(), cpu_sched.target.numpy()
+    rows = nb0.cpu().numpy()[lv, tg]
+    nodes = np.unique(np.concatenate([tg, cpu_sched.new_ids.numpy(),
+                                      rows[rows >= 0]]))
+    W, M0 = hcfg.words, hcfg.M0
+    G, N = sched.groups, sched.links
+    n_dist = int((rows >= 0).sum()) + N
+    nbytes = len(nodes) * (4 * W + 4) + 2 * G * M0 * 4 + 8 * (3 * G + 1 + N)
+    b_ms, b_by = bound(nbytes, 3 * n_dist * W + 2 * N * (M0 + 1) ** 2)
+    rec = dict(
+        name="link_back", route="cuda",
+        source="src/repro_torch/kernels/csrc/hnsw_commit.cu",
+        replaces="none (the port's per-(row, level) _link_back loop)",
+        shape=f"G={G} groups, N={N} links (largest group "
+              f"{int(sizes.max())}), {len(nodes)} nodes, W={W} M0={M0}, "
+              f"{int(n)} admitted of {PROGRAM_BATCH}",
+        max_abs_err=max(diffs.values()), variants=diffs,
+        ms=trace_ms(call, 30, "link_back", least=20),
+        call_ms=cuda_ms(call, 30), restore_ms=cuda_ms(restore, 30),
+        plain_ms=None, plain_cpu_ms={k: v * 1e3 for k, v in plain_s.items()},
+        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, distances=n_dist,
+        popc_floor_ms=popc_floor_ms(n_dist * W), library_ms=None)
+    log("kernel link_back " + json.dumps(rec))
+    return rec
 
 
 def states_equal(a, b) -> list:
@@ -1372,12 +1499,16 @@ def phase_programs(main_state, replay_batch, fresh_batch, batch_profile,
         if bad:
             fail("programs: " + "; ".join(v.render() for v in bad))
     out["launches"] = dict(_lib.LAUNCHES)
-    if any(out["launches"].values()):
-        fail(f"programs: the analyzed programs launched a kernel: "
-             f"{out['launches']}")
+    # the inserting specs (hnsw/insert, hnsw_sharded/fused_step, each run
+    # on both devices) commit through K5; nothing else launches a kernel
+    if (any(n for k, n in out["launches"].items() if k != "link_back")
+            or out["launches"]["link_back"] < 2):
+        fail(f"programs: the analyzed programs launched {out['launches']}, "
+             f"expected K5 in each card run of hnsw/insert and "
+             f"hnsw_sharded/fused_step and nothing else")
     log(f"programs: {len(specs)} specs equal on cuda and cpu (interface, "
         f"bytes, aliasing, f64, data-dependent ops, outputs), no violation "
-        f"on the card, K1-K4 not launched")
+        f"on the card, K1-K4 not launched, K5 once per inserting spec")
 
     # (b) production geometry: phase 3's state. First phase 3's last batch
     # again (what its profiled batch ran: every doc is in the index, so
@@ -2704,9 +2835,11 @@ def phase_examples(card: str, dev) -> dict:
                          ["minhash", "jaccard_cached"])
     want = {"minhash": 4, "jaccard_cached": 0, "jaccard_nocache": 0,
             "hamming": 0}
-    if runs["distributed_dedup"]["launches"] != want:
+    got = dict(runs["distributed_dedup"]["launches"])
+    if got.pop("link_back", 0) <= 0 or got != want:
         fail(f"examples distributed_dedup: launches "
-             f"{runs['distributed_dedup']['launches']}, expected {want}")
+             f"{runs['distributed_dedup']['launches']}, expected {want} "
+             f"and K5 in every shard's commit")
     # (e) and (f)
     train = example_train(dev, card)
     srv = example_serve(dev, card)
@@ -2834,7 +2967,7 @@ def main() -> None:
     padded[:, :tok.shape[1]] = tok
     t0 = time.perf_counter()
     recs, extra = phase_kernels(dev, (padded, ln))
-    log(f"kernel checks: all four equal their plain versions (max error 0); "
+    log(f"kernel checks: K1-K4 equal their plain versions (max error 0); "
         f"phase wall {time.perf_counter() - t0:.1f} s")
 
     launches = {}
@@ -2846,6 +2979,10 @@ def main() -> None:
     res, main_launches, pipe, hnsw_keep = phase_pipeline(pipe_batches, card,
                                                          dev)
     launches["minhash"] = launches["jaccard_cached"] = main_launches
+    launches["link_back"] = main_launches
+    if main_launches["link_back"] > len(pipe_batches):
+        fail(f"K5: {main_launches['link_back']} launches in "
+             f"{len(pipe_batches)} batches, at most one a batch")
     log(f"pipeline: phase wall {time.perf_counter() - t0:.1f} s")
 
     from repro_torch.kernels import ops
@@ -2860,6 +2997,10 @@ def main() -> None:
     # phase 12 (b) runs on a copy of phase 3's final state
     from repro_torch.core.hnsw import HNSWState
     main_state = HNSWState(*(t.clone() for t in pipe.state))
+    t0 = time.perf_counter()
+    recs.append(phase_commit_kernel(main_state, more_batches[-1], dev))
+    log(f"kernel checks: K5 equals its plain version (max error 0); phase "
+        f"wall {time.perf_counter() - t0:.1f} s")
 
     _, brute = phase_reference(pipe_batches, hnsw_keep, par_batches, dev)
     phase_options(par_batches, dev)
@@ -2883,13 +3024,14 @@ def main() -> None:
     paths = {"minhash": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_cached": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch",
              "jaccard_nocache": "FoldPipeline(FoldConfig(cached=False)).process_batch",
-             "hamming": "ops.hamming"}
+             "hamming": "ops.hamming",
+             "link_back": "FoldPipeline(FoldConfig(capacity=2**20)).process_batch"}
     for r in recs:
         r["launches"] = launches[r["name"]][r["name"]]
         r["path"] = paths[r["name"]]
         if r["launches"] <= 0:
             fail(f"kernel {r['name']} was not launched on its path")
-        if r["name"] in ("minhash", "jaccard_cached"):
+        if r["name"] in ("minhash", "jaccard_cached", "link_back"):
             r["path_launches"] = {
                 "pipeline": r["launches"],
                 "service": svc["main"]["launches"][r["name"]],
@@ -2899,21 +3041,27 @@ def main() -> None:
                 f"baselines/{tag}": run["launches"]["minhash"]
                 for tag, run in base["runs"].items()
                 if run["key"] != "prefix_filter"})
+        if r["name"] == "link_back":
+            # every HNSW-graph insert commits through K5
+            r["path_launches"].update({
+                f"baselines/{tag}": run["launches"]["link_back"]
+                for tag, run in base["runs"].items()
+                if run["key"] == "hnsw_raw"})
         # hnsw_sharded: K1 once per batch; its in-batch matrix is the plain
         # pairwise product, as in the reference, so K2-K4 never run there
         r.setdefault("path_launches", {})["sharded"] = \
             shard["main"]["launches"].get(r["name"], 0)
-        # the analyzed hot-path programs (phase 12) reach no kernel
+        # the analyzed hot-path programs (phase 12) reach K5 alone
         r["path_launches"]["programs"] = prog["launches"].get(r["name"], 0)
         # the LM serving path (phase 13) reaches no kernel
         r["path_launches"]["lm_serve"] = lm["launches"].get(r["name"], 0)
-        # the LM training path (phase 14): K1 and K2 in its ingest
+        # the LM training path (phase 14): K1, K2 and K5 in its ingest
         r["path_launches"]["lm_train"] = train["launches"].get(r["name"], 0)
-        # meshed training (phase 15): K1 and K2 in its ingest
+        # meshed training (phase 15): K1, K2 and K5 in its ingest
         r["path_launches"]["lm_train_mesh"] = mesh["launches"].get(
             r["name"], 0)
-        # the six examples (phase 16): K1 and K2 where they dedup on the
-        # main path, K1 alone in the sharded step, none in LM serving
+        # the six examples (phase 16): K1, K2 and K5 where they dedup on
+        # the main path, K1 and K5 in the sharded step, none in LM serving
         for tag, run in examples["runs"].items():
             r["path_launches"][f"examples/{tag}"] = run["launches"].get(
                 r["name"], 0)

@@ -6,8 +6,8 @@ program and never executes it. Eager PyTorch has no trace of these
 programs short of running them, because they are data-dependent: the
 lockstep beam loops stop on `nonzero` / `bool(any)` reads
 (`core/hnsw.py::_greedy_step`, `_search_layer`, `_discover_candidates`),
-the sequential commit reads its per-row arrays back to the host
-(`_commit_batch`), and meta tensors stop at the first of these. So
+the commit plans its back-links on the host from one copy of its per-row
+arrays (`_commit_batch`), and meta tensors stop at the first of these. So
 `measure_run` runs the program once, on inputs the spec makes from a fixed
 seed, and observes the run:
 
@@ -25,7 +25,10 @@ seed, and observes the run:
     reads as not measured: `launches` and `device_ops` are None.
 
 The port's CUDA kernels launch through ctypes and are invisible to the
-dispatch mode (the profiler sees them); no spec reaches one.
+dispatch mode (the profiler sees them, and counts them among `launches`).
+On a card, `hnsw/insert` and `hnsw_sharded/fused_step` reach one: K5, the
+commit's back-links (`kernels/hnsw_commit.py`), once per insert; on the
+CPU its plain version runs in their place and its aten ops are counted.
 
 Checks (the reference's rule ids, see also `repro_torch/analysis/gate.py`):
 

@@ -46,6 +46,8 @@ from repro_torch.core.bitset import (bitset_add, bitset_nbytes, bitset_test,
                                      bitset_zeros)
 from repro_torch.core.hashing import popc
 from repro_torch.device import resolve_device
+from repro_torch.kernels.hnsw_commit import (LinkSchedule, check_schedule,
+                                             link_back_kernel)
 from repro_torch.kernels.ref import hamming_from_px
 
 __all__ = ["HNSWConfig", "HNSWState", "hnsw_init", "hnsw_grow",
@@ -619,7 +621,7 @@ def _insert_per_doc(cfg: HNSWConfig, state: HNSWState, vecs, pcs, levels,
                 sel = c_ids[0, :m_l]
                 nv = spans.to_int((sel >= 0).sum())
                 if nv:
-                    _link_back(cfg, state, idx, lev, sel[:nv], m_l)
+                    link_back(cfg, state, _row_links(idx, lev, sel[:nv]))
                 s_ids, s_d = c_ids[:, :1], c_d[:, :1]
             if level > top:
                 entry, top = idx, level
@@ -735,70 +737,153 @@ def _merge_candidates(cfg: HNSWConfig, state: HNSWState, levels, admit,
     return torch.stack(fwd_levels, dim=1), torch.stack(sel_levels, dim=1)
 
 
-def _link_back(cfg: HNSWConfig, state: HNSWState, new_id: int, level: int,
-               sel_ids: torch.Tensor, m_l: int) -> None:
+def _link_back(cfg: HNSWConfig, state: HNSWState, new_id, level, sel_ids,
+               m_l) -> None:
     """Add new_id into each selected neighbor's row at `level`; sel_ids
-    (S,) are valid and distinct. In place.
+    (S,) are valid, and new_id, level and m_l are each a number or an (S,)
+    tensor, one per target, with no (level, target) pair twice. In place.
 
     hnswlib's mutuallyConnectNewElement: while a row has room the new id
     is merged in (the closest m_l of the finite candidates); once the row
     would overflow and cfg.select_heuristic is on, the row is re-selected
-    with the heuristic over its candidates sorted by distance (stable)."""
+    with the heuristic over its candidates sorted by distance (stable).
+
+    The step of K5's plain version (`_link_back_plain`), which runs on
+    CPU tensors only: its read of the overfull rows is a host read of
+    host memory, which the card's path does not make, so it is not
+    counted as a sync."""
     S = sel_ids.shape[0]
+    dev = sel_ids.device
     idx = sel_ids.to(torch.int64)
-    rows = state.neighbors[level, idx]                          # (S, M0)
-    cand = torch.cat([rows, torch.full((S, 1), new_id, dtype=torch.int32,
-                                       device=rows.device)], dim=1)
+    lev = torch.as_tensor(level, device=dev).to(torch.int64).expand(S)
+    m_l = torch.as_tensor(m_l, device=dev).expand(S)
+    new = torch.as_tensor(new_id, device=dev).to(torch.int32).expand(S)
+    rows = state.neighbors[lev, idx]                            # (S, M0)
+    cand = torch.cat([rows, new[:, None]], dim=1)
     d = _dist_ids(cfg, state, state.vectors[idx], state.pb[idx], cand)
-    new_rows = _closest_rows(cfg, cand, d, m_l)
+    new_rows = _closest_rows(cfg, cand, d, m_l[:, None])
     if cfg.select_heuristic:
         # only overfull rows take the heuristic's rows: score only them
-        over = spans.nonzero((cand >= 0).sum(1) > m_l)
+        over = torch.nonzero((cand >= 0).sum(1) > m_l).squeeze(1)
         if over.numel():
             cd, order = torch.sort(d[over], dim=1, stable=True)
             new_rows[over] = _diverse_rows(
-                cfg, state, torch.gather(cand[over], 1, order), cd, m_l)
-    state.neighbors[level, idx] = new_rows
+                cfg, state, torch.gather(cand[over], 1, order), cd, m_l[over])
+    state.neighbors[lev, idx] = new_rows
+
+
+def _link_back_plain(cfg: HNSWConfig, state: HNSWState,
+                     sched: LinkSchedule) -> None:
+    """The plain version of K5, for CPU tensors: `_link_back` over the
+    groups in waves, the k-th new id of every group with at least k + 1
+    in the k-th wave. Groups touch distinct rows, so a wave changes each
+    of its rows once, and each group still takes its new ids in row
+    order. Its reads of the schedule are host reads of host memory, no
+    card syncs, and are not counted."""
+    start = sched.start.numpy()
+    size = np.diff(start)
+    for k in range(int(size.max(initial=0))):
+        g = torch.from_numpy(np.flatnonzero(size > k))
+        lev = sched.level[g]
+        m_l = torch.where(lev == 0, cfg.M0, cfg.M)
+        _link_back(cfg, state, sched.new_ids[sched.start[g] + k], lev,
+                   sched.target[g], m_l)
+
+
+def link_back(cfg: HNSWConfig, state: HNSWState, sched: LinkSchedule
+              ) -> None:
+    """Apply a batch's back-links (a `LinkSchedule`) to `state.neighbors`,
+    in place: K5 (`kernels/hnsw_commit.py`) on a card, `_link_back_plain`
+    on the CPU. A CUDA tensor never reaches the plain version."""
+    check_schedule(cfg, state, sched)
+    if state.neighbors.device.type == "cpu":
+        _link_back_plain(cfg, state, sched)
+    else:
+        link_back_kernel(cfg, state, sched)
+
+
+def _row_links(new_id: int, level: int, targets: torch.Tensor
+               ) -> LinkSchedule:
+    """One row's back-links at one level: a group per target."""
+    n, dev = targets.shape[0], targets.device
+    return LinkSchedule(
+        level=torch.full((n,), level, dtype=torch.int64, device=dev),
+        target=targets.to(torch.int64),
+        start=torch.arange(n + 1, dtype=torch.int64, device=dev),
+        new_ids=torch.full((n,), new_id, dtype=torch.int64, device=dev))
+
+
+def _plan_commit(cfg: HNSWConfig, adm, lvl, slot, top: int, entry: int,
+                 sel) -> tuple[np.ndarray, tuple[int, ...]]:
+    """The commit of a batch, planned on the host from numpy copies of
+    admit, levels, slots (B,), the running top level and entry, and sel
+    (B, L+1, M0). A row is linked at levels min(level, top it meets) down
+    to 0, where the top it meets is raised by the batch's earlier admitted
+    rows; at each it back-links the valid prefix of its sel row, at most
+    m_l long. The entry moves to the last row that raised the top.
+
+    Returns one int64 array and the lengths of its parts: the (row,
+    level) pairs whose forward rows are written (rows, levels, slots),
+    the back-links as a LinkSchedule's level, target, start and new_ids
+    (ordered by (level, target) by a stable sort of the row-major
+    enumeration, so each group keeps the batch's row order), then the
+    new entry and top level."""
+    L1, cap = cfg.max_level + 1, cfg.capacity
+    met = np.maximum.accumulate(np.concatenate([[top], np.where(adm, lvl, -1)]))
+    hi = np.where(adm, np.minimum(lvl, met[:-1]), -1)
+    raised = np.flatnonzero(adm & (lvl > met[:-1]))
+    if raised.size:
+        entry = int(slot[raised[-1]])
+    work = hi[:, None] >= np.arange(L1)[None, :]                 # (B, L+1)
+    rows, levs = np.nonzero(work)
+    m_l = np.where(np.arange(L1) == 0, cfg.M0, cfg.M)
+    n_link = np.minimum((sel >= 0).sum(-1), m_l[None, :])       # (B, L+1)
+    li, ll, lj = np.nonzero(work[:, :, None] & (
+        np.arange(cfg.M0)[None, None, :] < n_link[:, :, None]))
+    key = ll * cap + sel[li, ll, lj]
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    first = np.flatnonzero(np.diff(key, prepend=-1) != 0)
+    parts = (rows, levs, slot[rows], key[first] // cap, key[first] % cap,
+             np.append(first, key.size), slot[li[order]],
+             [entry, int(met[-1])])
+    return (np.concatenate([np.asarray(p, np.int64) for p in parts]),
+            tuple(len(p) for p in parts))
 
 
 def _commit_batch(cfg: HNSWConfig, state: HNSWState, levels, admit, slots,
                   fwd, sel) -> HNSWState:
     """Phase B: the order-dependent graph surgery, in place.
 
-    The sequential part is kept sequential and visible: a Python loop over
-    the admitted rows, in row order, doing each row's back-links
-    (_link_back). Which (row, level) pairs are active depends only on the
-    levels and the running top level, so it is worked out on the host
-    first (one copy of the small per-row arrays), and every forward row
-    write happens before the loop: a row's own adjacency row is written
-    by no earlier row's back-link (back-link targets are pre-batch nodes
-    or EARLIER rows), so hoisting the writes changes nothing."""
-    adm = spans.to_host(admit)
-    lvl = spans.to_host(levels)
-    slot = spans.to_host(slots)
-    # valid back-link targets are a prefix of each distance-sorted sel row
-    n_sel = spans.to_host((sel >= 0).sum(-1))                  # (B, L+1)
-    top = spans.to_int(state.top_level)
-    entry = spans.to_int(state.entry)
-    work = []                                   # (row, level) in commit order
-    for i in np.flatnonzero(adm):
-        for lev in range(min(int(lvl[i]), top), -1, -1):
-            work.append((int(i), lev))
-        if lvl[i] > top:
-            entry, top = int(slot[i]), int(lvl[i])
-    if work:
-        spans.sync()
-        rows = torch.tensor([i for i, _ in work], device=slots.device)
-        spans.sync()
-        levs = torch.tensor([lev for _, lev in work], device=slots.device)
-        state.neighbors[levs, slots[rows].to(torch.int64)] = fwd[rows, levs]
-    for i, lev in work:
-        m_l = cfg.M0 if lev == 0 else cfg.M
-        nv = min(int(n_sel[i, lev]), m_l)
-        if nv:
-            _link_back(cfg, state, int(slot[i]), lev, sel[i, lev, :nv], m_l)
-    dev = state.entry.device
-    return state._replace(entry=_scalar(entry, dev), top_level=_scalar(top, dev))
+    Which (row, level) pairs are active depends only on the levels and the
+    running top level, so the commit is planned on the host
+    (`_plan_commit`) from one copy of the small per-row arrays and `sel`,
+    and the plan goes back in one upload. Every forward row write happens
+    first: a row's own adjacency row is written by no earlier row's
+    back-link (back-link targets are pre-batch nodes or EARLIER rows), so
+    hoisting the writes changes nothing. Then one `link_back` (K5 on a
+    card) applies all of the batch's back-links, grouped by (level,
+    target), each group's new ids in row order: two rows that share a
+    target change its row in turn. The open record's span counts the
+    back-links and their groups (`links`, `groups`)."""
+    B = slots.shape[0]
+    dev = slots.device
+    host = spans.to_host(torch.cat([
+        admit.to(torch.int32), levels, slots, state.top_level.reshape(1),
+        state.entry.reshape(1), sel.reshape(-1)]))
+    plan, sizes = _plan_commit(
+        cfg, host[:B].astype(bool), host[B:2 * B], host[2 * B:3 * B],
+        int(host[3 * B]), int(host[3 * B + 1]),
+        host[3 * B + 2:].reshape(sel.shape))
+    rows, levs, fslot, *links, tail = torch.split(
+        spans.upload(plan, dev), sizes)
+    sched = LinkSchedule(*links)
+    spans.add(links=sched.links, groups=sched.groups)
+    if rows.numel():
+        state.neighbors[levs, fslot] = fwd[rows, levs]
+    link_back(cfg, state, sched)
+    entry, top = tail.to(torch.int32)
+    return state._replace(entry=entry, top_level=top)
 
 
 @_program

@@ -556,18 +556,18 @@ def _hnsw_programs() -> list[ProgramSpec]:
             name="hnsw/insert", make=make_insert,
             alias_expect=_STATE_LEAVES - 3,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
             budget=ProgramBudget(
-                temp_bytes=80_000_000, scatter=230, host_syncs=54,
-                card_syncs=63,
+                temp_bytes=80_000_000, scatter=200, host_syncs=52,
+                card_syncs=55,
                 note="two-phase batched insert (discover + commit), in "
-                     "place: the returned state shares vectors, pb, "
+                     "place; the commit makes 2 card syncs (its arrays "
+                     "down, its plan up) and one K5 launch. The returned "
+                     "state shares vectors, pb, "
                      "neighbors, node_level and dead; count, entry and "
                      "top_level are re-made 0-d tensors (12 bytes at any "
-                     "capacity; the reference donates all 8). Ceilings "
-                     "over the reference's: scatter 230 (200; each "
-                     "lockstep beam step is its own scatters, 221 "
-                     "measured) and temp 80,000,000 (64,000,000; the "
-                     "search's materialized temporaries, 77,252,096 on "
-                     "the card)")),
+                     "capacity; the reference donates all 8). Ceiling "
+                     "over the reference's: temp 80,000,000 (64,000,000; "
+                     "the search's materialized temporaries, 77,252,096 "
+                     "on the card)")),
         ProgramSpec(
             name="hnsw/delete", make=make_delete,
             alias_expect=_STATE_LEAVES,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)

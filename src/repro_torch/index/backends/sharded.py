@@ -456,7 +456,7 @@ def _sharded_programs() -> list[ProgramSpec]:
         name="hnsw_sharded/fused_step", make=make_step,
         alias_expect=len(HNSWState._fields) - 3,  # foldlint: disable=F141 (the port's ProgramSpec: alias_expect)
         budget=ProgramBudget(
-            temp_bytes=900_000_000, host_syncs=72, card_syncs=84,
+            temp_bytes=900_000_000, host_syncs=70, card_syncs=76,
             note="each shard's insert updates its state in place: vectors, "
                  "pb, neighbors, node_level and dead are shared, count, "
                  "entry and top_level re-made 0-d tensors (the reference "

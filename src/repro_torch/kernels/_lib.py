@@ -32,12 +32,13 @@ _ENTRY_POINTS = {
     "bitmap_jaccard.cu": {"fold_bitmap_jaccard_cached": (5, 3),
                           "fold_bitmap_jaccard_nocache": (3, 3),
                           "fold_hamming": (3, 3)},
+    "hnsw_commit.cu": {"fold_link_back": (7, 7)},
 }
 
 # Launch counts per kernel: each wrapper adds one where it launches its
 # kernel and nowhere else, so a run can show the path went through it.
 LAUNCHES = {"minhash": 0, "jaccard_cached": 0, "jaccard_nocache": 0,
-            "hamming": 0}
+            "hamming": 0, "link_back": 0}
 # nvcc output (ptxas register / shared-memory report) per source
 BUILD_LOG: dict[str, str] = {}
 

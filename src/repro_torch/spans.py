@@ -7,6 +7,9 @@ runs the split-stage path. Below an open record,
 - `span(name)` times its block into `stats["spans"][name]["s"]` (and,
   given `key`, into `stats[key]`: that is how the stage timers
   `t_signature`, `t_in_batch`, `t_search`, `t_insert` are kept);
+- `add(key=n)` adds a count of the work done to the innermost span's
+  entry (the insert's commit adds its back-links and their groups, as
+  `links` and `groups`);
 - every host read of device data on the path (a `.cpu()`, a `bool()` or
   `int()` of a tensor, a `torch.nonzero`, an upload of a host array) goes
   through `sync()`, which adds one to the `syncs` of the innermost open
@@ -43,7 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["KEY", "RING", "span", "ready", "sync", "nonzero", "to_host",
+__all__ = ["KEY", "RING", "span", "ready", "sync", "add", "nonzero", "to_host",
            "truth", "to_int", "upload", "to_device", "finished", "emitted", "materialized",
            "recent"]
 
@@ -140,6 +143,15 @@ def sync() -> None:
     # the span that opened the record is on its stack until it closes
     if _open is not None:
         _open.stack[-1]["syncs"] += 1
+
+
+def add(**counts: int) -> None:
+    """Add counts of the work a span did (the commit's `links` and
+    `groups`) to the innermost open span's entry."""
+    if _open is not None:
+        entry = _open.stack[-1]
+        for key, n in counts.items():
+            entry[key] = entry.get(key, 0) + n
 
 
 # -- the counted host reads ---------------------------------------------------

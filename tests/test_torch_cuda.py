@@ -212,7 +212,21 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     ops.bitmap_jaccard(x, x, cached=False)
     ops.hamming(x, x)
     ops.minhash(x, x[0])
+    # the insert's commit, batched and per doc, through K5 alone
+    from repro_torch.core import hnsw
+    monkeypatch.setattr(hnsw, "_link_back_plain", boom)
+    monkeypatch.setattr(hnsw, "_link_back", boom)
+    before = _lib.LAUNCHES["link_back"]
+    for batched in (True, False):
+        cfg = hnsw.HNSWConfig(capacity=64, words=32, M=4, M0=8,
+                              ef_construction=8, ef_search=8, max_level=2,
+                              batched_insert=batched)
+        hnsw.hnsw_insert_batch(cfg, hnsw.hnsw_init(cfg, cuda), x,
+                               ref.popcount(x),
+                               torch.zeros(16, dtype=torch.int32),
+                               torch.ones(16, dtype=torch.bool))
     torch.cuda.synchronize()
+    assert _lib.LAUNCHES["link_back"] > before + 1
 
 
 @pytest.mark.gpu
@@ -256,6 +270,137 @@ def _same_state(a, b):
     from repro_torch.core.hnsw import state_to_numpy
     na, nb = state_to_numpy(a), state_to_numpy(b)
     return [k for k in na if not np.array_equal(na[k], nb[k])]
+
+
+COMMIT_CASES = ["shared_target", "duplicates", "empty_graph", "above_top",
+                "free_slots"]
+
+
+def _commit_rows(metric, n, rng):
+    """n rows: 4,096-bit bitmaps with 112 bits set (bitmap_jaccard,
+    hamming) or 112 MinHash lanes (minhash_jaccard)."""
+    if metric == "minhash_jaccard":
+        return words(rng, (n, 112))
+    bits = np.zeros((n, 4096), bool)
+    for r in range(n):
+        bits[r, rng.choice(4096, 112, replace=False)] = True
+    return np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+
+
+def _near(metric, v, rng, k=3):
+    """A near-copy of row v: k lanes redrawn, or k set bits moved."""
+    if metric == "minhash_jaccard":
+        v = v.copy()
+        v[rng.choice(v.size, k, replace=False)] = words(rng, k)
+        return v
+    bits = np.unpackbits(v.view(np.uint8), bitorder="little").astype(bool)
+    bits[rng.choice(np.flatnonzero(bits), k, replace=False)] = False
+    bits[rng.choice(np.flatnonzero(~bits), k, replace=False)] = True
+    return np.packbits(bits, bitorder="little").view(np.uint32)
+
+
+def _commit_case(kind, metric, heuristic):
+    """(cfg, base rows and levels, two batches of (rows, levels, mask)) for
+    one case of test_cuda_commit_kernel_equals_plain."""
+    from repro_torch.core.hnsw import HNSWConfig, sample_levels
+    rng = np.random.default_rng(COMMIT_CASES.index(kind) * 7 + len(metric))
+    # M0 = 32 puts M0 + 1 = 33 candidates on a warp's 32 lanes
+    wide = kind in ("shared_target", "duplicates")
+    W = 112 if metric == "minhash_jaccard" else 128
+    cfg = HNSWConfig(capacity=512, words=W, M=16 if wide else 8,
+                     M0=32 if wide else 16, ef_construction=32,
+                     ef_search=32, max_level=3, metric=metric,
+                     select_heuristic=heuristic)
+    base = _commit_rows(metric, 0 if kind == "empty_graph" else 160, rng)
+    base_lv = (np.zeros(len(base), np.int32) if kind == "above_top"
+               else sample_levels(len(base), cfg, seed=1))
+    batches = []
+    for b in range(2):
+        rows = _commit_rows(metric, 64, rng)
+        if kind == "shared_target":     # many rows back-link one target
+            rows[:48] = [_near(metric, base[b], rng) for _ in range(48)]
+        elif kind == "duplicates":      # equal distances: the tie order
+            rows[:8] = base[5 + b]
+            rows[8:16] = rows[16]
+        else:
+            for i in range(32, 64):
+                rows[i] = _near(metric, rows[i - 32], rng)
+        lv = (rng.integers(0, 4, 64).astype(np.int32) if kind == "above_top"
+              else sample_levels(64, cfg, seed=2 + b))
+        batches.append((rows, lv, rng.random(64) < 0.9))
+    return cfg, (base, base_lv), batches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", COMMIT_CASES)
+@pytest.mark.parametrize("heuristic", [False, True], ids=["closest", "heuristic"])
+@pytest.mark.parametrize("metric", ["bitmap_jaccard", "minhash_jaccard",
+                                    "hamming"])
+def test_cuda_commit_kernel_equals_plain(cuda, metric, heuristic, kind,
+                                         monkeypatch):
+    """hnsw_insert_batch on the card, whose commit is K5, leaves the state
+    (neighbors, entry, top_level and the rest) bit-equal to the CPU's plain
+    path after every batch, with one K5 launch a batch: many rows
+    back-linking one target (hazard L), duplicate vectors (tie order), an
+    empty graph, rows above the running top level, reused free slots."""
+    from repro_torch.core import hnsw
+    cfg, (base, base_lv), batches = _commit_case(kind, metric, heuristic)
+    scheds = []
+    apply = hnsw.link_back
+
+    def recorded(c, st, sched):
+        sizes = np.diff(sched.start.cpu().numpy())
+        scheds.append((st.neighbors.device.type, sched.links,
+                       int(sizes.max(initial=0))))
+        apply(c, st, sched)
+
+    monkeypatch.setattr(hnsw, "link_back", recorded)
+
+    def run(dev):
+        def t(a):
+            return to_t(a).to(dev)
+
+        def insert(st, rows, lv, mask, free=None):
+            return hnsw.hnsw_insert_batch(
+                cfg, st, t(rows), ref.popcount(t(rows)),
+                torch.from_numpy(lv).to(dev), torch.from_numpy(mask).to(dev),
+                free_slots=free)
+
+        st = hnsw.hnsw_init(cfg, dev)
+        if len(base):
+            st, _ = insert(st, base, base_lv, np.ones(len(base), bool))
+        free = None
+        if kind == "free_slots":
+            st, _ = hnsw.hnsw_delete(cfg, st, torch.arange(0, 160, 3,
+                                                           device=dev))
+            st, _ = hnsw.hnsw_compact(cfg, st)
+            # the backend's free list: unlinked slots below the count
+            lv = st.node_level.cpu().numpy()[:int(st.count)]
+            free = np.full(64, -1, np.int32)
+            got = np.flatnonzero(lv < 0)[:64]
+            free[:len(got)] = got
+            free = torch.from_numpy(free).to(dev)
+        out = []
+        for b, (rows, lv, mask) in enumerate(batches):
+            before = _lib.LAUNCHES["link_back"]
+            st, n = insert(st, rows, lv, mask, free if b == 0 else None)
+            torch.cuda.synchronize()
+            out.append((hnsw.state_to_numpy(st), int(n),
+                        _lib.LAUNCHES["link_back"] - before))
+        return out
+
+    card, host = run(cuda), run("cpu")
+    for b, ((cs, cn, cl), (hs, hn, hl)) in enumerate(zip(card, host)):
+        assert cn == hn == int(batches[b][2].sum()), b
+        for field in ("neighbors", "entry", "top_level", "vectors", "pb",
+                      "node_level", "dead", "count"):
+            np.testing.assert_array_equal(cs[field], hs[field],
+                                          err_msg=f"batch {b}: {field}")
+        assert (cl, hl) == (1, 0), b
+    on_card = [s for s in scheds if s[0] == "cuda"]
+    assert on_card and all(links > 0 for _, links, _ in on_card)
+    if kind == "shared_target":
+        assert max(m for *_, m in on_card) >= 8
 
 
 @pytest.mark.gpu

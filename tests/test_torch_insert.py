@@ -3,7 +3,9 @@ PyTorch port: `_select_diverse` and `_link_back` against the JAX package,
 the heuristic's back-link rule on a hand-built row, and the property the
 reference holds for its two insert organizations — a batch driven one
 row at a time through the batched path builds the per-doc path's graph
-bit for bit."""
+bit for bit. Then the batched commit: its plan (`_plan_commit`) on a
+hand-made batch, and applied by K5's plain version, in waves and group by
+group, against the JAX package's graph; its record's counts."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -181,3 +183,153 @@ def test_batched_single_row_equals_per_doc(heuristic, levels_kind):
         n_tot += int(n)
     assert n_tot == int(mask.sum())
     _assert_equal_states(one, jst)
+
+
+def _shared_target_batch(n_base=40, n_new=32, seed=3):
+    """A JAX-built graph of n_base nodes and a batch of n_new near-copies
+    of its node 0: every row back-links node 0 and the batch's earlier
+    rows, so one target's row takes many new ids in turn."""
+    vecs, _ = _corpus(n_base + n_new, seed=seed, dup_rate=0.0)
+    vecs = vecs.copy()
+    rng = np.random.default_rng(seed)
+    for i in range(n_base, n_base + n_new):
+        vecs[i] = vecs[0]
+        flip = rng.choice(vecs.shape[1], 2, replace=False)
+        vecs[i, flip] ^= np.uint32(1) << rng.integers(0, 32, 2).astype(
+            np.uint32)
+    pcs = np.asarray(popcount(jnp.asarray(vecs)))
+    return vecs, pcs
+
+
+def _jax_then_both(cfg, vecs, pcs, levels, mask, n_base):
+    """The JAX package inserts the first n_base rows; then the JAX package
+    and the port each insert the rest as one batch. Returns the JAX state
+    and a CPU port state copied from before that batch."""
+    jst, _ = J.hnsw_insert_batch(cfg, J.hnsw_init(cfg),
+                                 jnp.asarray(vecs[:n_base]),
+                                 jnp.asarray(pcs[:n_base]),
+                                 jnp.asarray(levels[:n_base]),
+                                 jnp.ones(n_base, bool))
+    tst = T.state_from_numpy(_numpy(jst), "cpu")
+    jst, _ = J.hnsw_insert_batch(cfg, jst, jnp.asarray(vecs[n_base:]),
+                                 jnp.asarray(pcs[n_base:]),
+                                 jnp.asarray(levels[n_base:]),
+                                 jnp.asarray(mask))
+    return jst, tst
+
+
+@pytest.mark.parametrize("one_by_one", [False, True],
+                         ids=["waves", "group_by_group"])
+@pytest.mark.parametrize("heuristic,levels_kind", [
+    (False, "sampled"), (True, "sampled"), (False, "tied"),
+    (False, "shared"), (True, "shared"),
+])
+def test_commit_plan_equals_jax(heuristic, levels_kind, one_by_one,
+                                monkeypatch):
+    """A batch's commit, planned on the CPU (`_plan_commit`) and applied by
+    the plain version of K5, builds the JAX package's graph bit for bit:
+    applied in waves (the plain version) and applied strictly group by
+    group, each group's new ids one at a time in row order. The "shared"
+    batch sends many rows' back-links to one target row."""
+    cfg = J.HNSWConfig(capacity=96, words=32, M=8, M0=16, ef_construction=16,
+                       ef_search=16, max_level=3, select_heuristic=heuristic)
+    if levels_kind == "shared":
+        vecs, pcs = _shared_target_batch()
+        n_base = 40
+    else:
+        vecs, pcs = _corpus(80, seed=5)
+        n_base = 32
+    n_new = len(vecs) - n_base
+    if levels_kind == "tied":
+        levels = np.ones(len(vecs), np.int32)
+    else:
+        levels = J.sample_levels(len(vecs), cfg)
+    mask = np.random.default_rng(11).random(n_new) < 0.8
+    jst, tst = _jax_then_both(cfg, vecs, pcs, levels, mask, n_base)
+    seen = []
+
+    def apply(tcfg, state, sched):
+        seen.append(sched)
+        if not one_by_one:
+            T._link_back_plain(tcfg, state, sched)
+            return
+        start = sched.start.numpy()
+        for g in range(sched.groups):
+            for k in range(start[g], start[g + 1]):
+                T._link_back_plain(tcfg, state, T.LinkSchedule(
+                    sched.level[g:g + 1], sched.target[g:g + 1],
+                    torch.tensor([0, 1]), sched.new_ids[k:k + 1]))
+
+    monkeypatch.setattr(T, "link_back", apply)
+    tcfg = T.HNSWConfig(**cfg._asdict())
+    tst, n = T.hnsw_insert_batch(tcfg, tst, _t(vecs[n_base:]),
+                                 torch.from_numpy(pcs[n_base:].copy()),
+                                 torch.from_numpy(levels[n_base:]),
+                                 torch.from_numpy(mask))
+    assert int(n) == int(mask.sum())
+    _assert_equal_states(tst, jst)
+    sched, = seen
+    sizes = np.diff(sched.start.numpy())
+    assert sched.links == sizes.sum() > 0 and (sizes > 0).all()
+    keys = sched.level.numpy() * cfg.capacity + sched.target.numpy()
+    assert (np.diff(keys) > 0).all()
+    if levels_kind == "shared":
+        assert sizes.max() >= 8
+
+
+def test_plan_commit_orders_each_target_by_row():
+    """A hand-made batch: the running top, the entry, the forward rows and
+    each (level, target) group's new ids in row order."""
+    cfg = T.HNSWConfig(capacity=16, words=1, M=2, M0=3, max_level=1)
+    adm = np.array([True, False, True, True])
+    lvl = np.array([1, 0, 0, 1], np.int32)
+    slot = np.array([10, 13, 11, 12], np.int32)
+    sel = np.full((4, 2, 3), -1, np.int32)
+    sel[0, 0, :2], sel[0, 1, :1] = [3, 4], [3]
+    sel[1, 0] = [3, 4, 5]                    # not admitted
+    sel[2, 0] = [4, 10, 3]
+    sel[2, 1, :2] = [3, 10]                  # level 1 > the row's level
+    sel[3, 0], sel[3, 1, :2] = [3, 4, 11], [3, 10]
+    plan, sizes = T._plan_commit(cfg, adm, lvl, slot, 0, 5, sel)
+    rows, levs, fslot, g_lev, g_tgt, start, new, tail = np.split(
+        plan, np.cumsum(sizes)[:-1])
+    # row 0 raises the top to 1 after linking at level 0 only; row 3 meets
+    # top 1 and links at both levels without raising it
+    assert list(zip(rows, levs, fslot)) == [(0, 0, 10), (2, 0, 11),
+                                            (3, 0, 12), (3, 1, 12)]
+    assert list(zip(g_lev, g_tgt)) == [(0, 3), (0, 4), (0, 10), (0, 11),
+                                       (1, 3), (1, 10)]
+    groups = [list(new[a:b]) for a, b in zip(start[:-1], start[1:])]
+    assert groups == [[10, 11, 12], [10, 11, 12], [11], [12], [12], [12]]
+    assert list(tail) == [10, 1]             # the entry, the top level
+
+
+def test_commit_record_counts_links_and_groups(monkeypatch):
+    """The open record's `insert.commit` entry carries the batch's
+    back-link count and group count, the sizes of its schedule."""
+    from repro_torch import spans
+    vecs, pcs = _shared_target_batch()
+    cfg = T.HNSWConfig(capacity=96, words=32, M=8, M0=16, ef_construction=16,
+                       ef_search=16, max_level=3)
+    levels = T.sample_levels(len(vecs), cfg)
+    st = T.hnsw_init(cfg, "cpu")
+    seen = []
+    apply = T.link_back
+    monkeypatch.setattr(T, "link_back",
+                        lambda c, s, sched: (seen.append(sched),
+                                             apply(c, s, sched)))
+    entries = []
+    for part in (slice(0, 40), slice(40, None)):
+        stats: dict = {}
+        with spans.span("insert", record=stats):
+            st, _ = T.hnsw_insert_batch(cfg, st, _t(vecs[part]),
+                                        torch.from_numpy(pcs[part].copy()),
+                                        torch.from_numpy(levels[part]),
+                                        torch.ones(len(vecs[part]),
+                                                   dtype=torch.bool))
+        entries.append(stats[spans.KEY]["insert.commit"])
+    assert len(seen) == 2
+    for e, sched in zip(entries, seen):
+        assert e["links"] == sched.links > 0
+        assert e["groups"] == sched.groups > 0
+        assert e["syncs"] == 2

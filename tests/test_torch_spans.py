@@ -52,10 +52,10 @@ def test_sync_counts_are_fixed_by_the_data():
         counts = [{k: v["syncs"] for k, v in st[spans.KEY].items()}
                   for st in (a, b)]
         assert counts[0] == counts[1]
-        # the search loops once per beam step; the commit reads its small
-        # arrays back once each
+        # the search loops once per beam step; the commit reads its arrays
+        # back in one copy and uploads its plan in one
         assert counts[0]["search"] > 0 and counts[0]["insert.discover"] > 0
-        assert counts[0]["insert.commit"] >= 6
+        assert counts[0]["insert.commit"] == 2
 
 
 def test_no_record_no_keys_and_no_ring_entry():
