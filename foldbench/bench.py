@@ -3,7 +3,11 @@ driver, the reference and the comparison, the metrics and the result.
 
 Everything that belongs to one cell is found by name: the cell in the
 root `BENCHMARK.json`, its configuration in `configs/<config>.json`, its
-traffic in `traffic/<traffic>.json`, each metric's reader in
+traffic in `traffic/<traffic>.json`, the configuration's driver in
+`drivers/<driver>.py` (a `drive(ctx)` that returns the run's record), its
+reference in `reference/<reference>.py` (`exact` where it names none: a
+`compare(...)` that returns every compared count and its control's, and a
+`truth(...)` that gives a sound program's verdicts), each metric's reader in
 `metrics/<metric>.py` (a `read(rec)` that returns a number, or None where
 the run holds nothing for it to read).
 """
@@ -21,15 +25,13 @@ from pathlib import Path
 
 import numpy as np
 
-from foldbench.drive import DRIVERS, Units
+from foldbench.drive import Units
 from foldbench.hostwatch import HostWatch
-from foldbench.reference import exact as exact_mod
-from foldbench.reference.signatures import signatures
-from foldbench.traffic.generate import (load_mix, pad, prefill_batches,
-                                        produce, unpad)
+from foldbench.traffic.generate import (load_mix, prefill_batches, produce,
+                                        unpad)
 
 __all__ = ["ROOT", "load_spec", "load_config", "cell_metrics", "read_metric",
-           "run"]
+           "load_piece", "run"]
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -39,9 +41,6 @@ TRACE_BATCHES = 2
 TRACE_SECONDS = 3.0
 # how long past the window's end an open loop waits for verdicts
 LATE_S = 60.0
-# the control: the exact pipeline on MinHash lanes of 16 bits, the integer
-# precision below the 32-bit lanes the configurations state
-CONTROL_LANE_BITS = 16
 
 
 def load_spec(root: Path = ROOT) -> dict:
@@ -61,13 +60,22 @@ def cell_metrics(spec: dict, cell: str, trace: bool) -> list:
     return [m for m in group if cell in m.get("workloads", [cell])]
 
 
-def read_metric(name: str, rec: dict):
-    path = HERE / "metrics" / f"{name}.py"
+def load_piece(kind: str, name: str, root: Path = HERE):
+    """The module `<root>/<kind>/<name>.py`: a driver (`kind` "drivers"),
+    a reference ("reference") or a metric's reader ("metrics")."""
+    path = root / kind / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} piece {name!r}: {path} is not a "
+                                f"file")
     spec = importlib.util.spec_from_file_location(
-        f"foldbench_metric_{name.replace('.', '_')}", path)
+        f"foldbench_{kind}_{name.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read(rec)
+    return mod
+
+
+def read_metric(name: str, rec: dict):
+    return load_piece("metrics", name).read(rec)
 
 
 def _log(msg: str) -> None:
@@ -136,28 +144,6 @@ def _sequence(rec: dict, mix: dict, config: dict) -> tuple[list, list, int]:
     return docs, verdicts, first
 
 
-def _reference_batches(docs: list, fold: dict, device,
-                       lane_bits: int = 32) -> list:
-    """(bits, popcounts) per batch, worked out from the documents."""
-    flat = [d for batch in docs for d in batch]
-    bits, pcs = [], []
-    for s in range(0, len(flat), 512):
-        b, p = signatures(*pad(flat[s:s + 512]),
-                          num_hashes=fold["num_hashes"],
-                          shingle_n=fold["shingle_n"], T=fold["T"],
-                          seed=fold["seed"], device=device,
-                          lane_bits=lane_bits)
-        bits.append(b)
-        pcs.append(p)
-    import torch
-    bits, pcs = torch.cat(bits), torch.cat(pcs)
-    out, at = [], 0
-    for batch in docs:
-        out.append((bits[at:at + len(batch)], pcs[at:at + len(batch)]))
-        at += len(batch)
-    return out
-
-
 def _checks(judged: dict, limits: dict) -> dict:
     """Each compared number beside its limit, {"max": x} or {"min": x}."""
     return {name: {"value": judged[name], **lim}
@@ -173,12 +159,13 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         device: str = "cuda", spec: dict | None = None,
         config: dict | None = None, mix: dict | None = None,
         cache: Path | None = None, t_start: float | None = None,
-        control: bool = False, on_ready=None, log=_log) -> dict:
+        control: bool = False, on_ready=None, log=_log,
+        pieces: Path = HERE) -> dict:
     """Run one cell once; returns the result line (a dict). `spec`,
     `config` and `mix` default to the files the cell names; `control` adds
     the control's comparison under the key "control"; `on_ready(pipeline)`
     is called once the prefill is restored (the tests plant faults
-    there)."""
+    there); the driver and the reference are found under `pieces`."""
     import torch
     t_start = time.perf_counter() if t_start is None else t_start
     spec = spec or load_spec()
@@ -188,6 +175,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
         raise KeyError(f"no cell {cell_name!r} in BENCHMARK.json")
     config = config or load_config(cell["config"])
     mix = mix or load_mix(cell["traffic"])
+    driver = load_piece("drivers", config["driver"], pieces)
+    reference = load_piece("reference", config.get("reference", "exact"),
+                           pieces)
     dev = torch.device(device)
     trace_seconds = TRACE_SECONDS if trace and mix["loop"] == "open" else 0.0
     proc, q, stop = _start_producer(mix, config, seed, seconds,
@@ -201,7 +191,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
            "late_s": LATE_S, "log": log,
            "on_ready": on_ready or (lambda p: None)}
     try:
-        rec = DRIVERS[config["driver"]](ctx)
+        rec = driver.drive(ctx)
     finally:
         _stop_producer(proc, q, stop)
     log(f"the window's host: {rec['host']}")
@@ -229,26 +219,18 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, *,
     rec["fold"] = fold
     t_ref = time.perf_counter()
     docs, verdicts, first = _sequence(rec, mix, config)
-    batches = _reference_batches(docs, fold, dev)
-    exact = exact_mod.exact_pipeline(batches, fold["tau"])
-    judged = exact_mod.judge(batches, verdicts, first, fold["tau"],
-                             exact=exact)
-    judged["missing"] += rec.get("missing_docs", 0)
-    claimed = sum(int(np.asarray(v, bool).sum()) for v in verdicts)
-    judged["index_gap"] = abs(claimed - rec["index_count"])
+    judged, counts = reference.compare(docs, verdicts, first, fold, config,
+                                       rec, device=dev, control=control)
+    if control and counts is None:
+        raise ValueError(f"reference {reference.__file__} gave no control "
+                         f"counts; a reference has to judge its control")
     rec["judge"] = judged
     checks = _checks(judged, config["limits"])
     out_control = None
-    if control:
-        ckeeps, _ = exact_mod.exact_pipeline(
-            _reference_batches(docs, fold, dev, CONTROL_LANE_BITS),
-            fold["tau"])
-        cj = exact_mod.judge(batches, ckeeps, first, fold["tau"],
-                             exact=exact)
-        cj["index_gap"] = 0       # the reference's index holds what it admits
-        cchecks = _checks(cj, config["limits"])
+    if counts is not None:
+        cchecks = _checks(counts, config["limits"])
         out_control = {"correct": _passes(cchecks), "checks": cchecks,
-                       "counts": cj}
+                       "counts": counts}
     log(f"reference and comparison took {time.perf_counter() - t_ref:.1f} s "
         f"over {sum(len(d) for d in docs)} documents in {len(docs)} batches "
         f"({first} before the judged ones); counts {judged}")

@@ -5,9 +5,10 @@ in one process on the card.
       --seconds 30 [--fault <name>]
 
 For each seed it runs the cell as `run.py --trace 0` does and judges, beside
-the program's verdicts, the control's: the exact pipeline on 16-bit MinHash
-lanes, the integer precision below the configurations' 32-bit lanes, put in
-the program's place over the same batches. With `--fault`, the program
+the program's verdicts, the control of the configuration's reference, put in
+the program's place over the same batches: for `exact`, the exact pipeline
+on 16-bit MinHash lanes, the integer precision below the configurations'
+32-bit lanes. With `--fault`, the program
 runs with that fault of `faults.py` planted in its timed path. Prints one
 JSON line per seed: the program's compared numbers and recall, and the
 control's. The benchmark's own runs never run the control.

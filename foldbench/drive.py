@@ -1,20 +1,12 @@
-"""The two ways a configuration drives the program, named by its
-`driver` key.
+"""What the drivers share: the generator's queue, the window's start and
+end, the closed loop and the open loop.
 
-  pipeline  `FoldPipeline(FoldConfig(**fold))` through
-            `DedupPipeline.process_batch`, closed loop: one caller, the
-            next batch sent when the last completes.
-  service   `DedupService(ServiceConfig(fold=FoldConfig(**fold),
-            **service))` through `submit` and `poll`, open loop: each
-            request is submitted at its scheduled arrival, or as soon
-            after as the caller is free; verdicts are seen through
-            `outcome_hooks`.
-
-Each restores the cell's prefill, runs the warm-up unit, measures the
-window, and with tracing on runs a traced segment after it. It returns
-the run's records: the time stamps and counts the metrics read, the
-sequence of batches the program saw (as documents, for the reference),
-and the program's verdicts for each.
+A driver is `drivers/<name>.py`, named by a configuration's `driver` key,
+with `drive(ctx) -> rec`: it restores the cell's prefill, runs the warm-up
+unit, measures the window, and with tracing on runs a traced segment after
+it. It returns the run's records: the time stamps and counts the metrics
+read, the sequence of batches the program saw (as documents, for the
+reference), the program's verdicts for each, and the index's live count.
 """
 from __future__ import annotations
 
@@ -28,7 +20,8 @@ from foldbench import prefill as prefill_mod
 from foldbench import trace as trace_mod
 from foldbench.traffic.generate import unpad
 
-__all__ = ["DRIVERS", "Units"]
+__all__ = ["Units", "window_start", "window_end", "log_setup",
+           "closed_loop", "open_loop"]
 
 clock = time.perf_counter
 
@@ -47,7 +40,7 @@ class Units:
         return unit
 
 
-def _window_start(ctx: dict) -> None:
+def window_start(ctx: dict) -> None:
     """Collect and freeze what set-up left, so that the window's
     collections pass over the window's own objects only; start watching
     the host."""
@@ -56,7 +49,7 @@ def _window_start(ctx: dict) -> None:
     ctx["watch"].start()
 
 
-def _window_end(ctx: dict, rec: dict) -> None:
+def window_end(ctx: dict, rec: dict) -> None:
     rec["host"] = ctx["watch"].stop()
     gc.unfreeze()
 
@@ -66,55 +59,72 @@ def _valid_shingles(lengths: np.ndarray, n: int) -> int:
     return int(np.where(ln >= n, ln - n + 1, np.minimum(ln, 1)).sum())
 
 
-def _log_setup(ctx: dict, setup_s: float, restored: float,
-               warm: float) -> None:
+def log_setup(ctx: dict, setup_s: float, restored: float,
+              warm: float) -> None:
     ctx["log"](f"set-up {setup_s:.3f} s: to the restored index "
                f"{restored - ctx['t_start']:.3f} s, warm-up unit "
                f"{warm - restored:.3f} s")
 
 
-def drive_pipeline(ctx: dict) -> dict:
+def closed_loop(ctx: dict, step: Callable | None = None,
+                save_extra: Callable | None = None,
+                load_extra: Callable | None = None) -> dict:
+    """`FoldPipeline(FoldConfig(**fold))` driven closed loop: one caller,
+    the next batch sent when the last completes. Every batch, those of the
+    prefill too, goes through `step(pipe, tokens, lengths) -> (keep,
+    stats)`, `pipe.process_batch(tokens, lengths)` where none is given;
+    `save_extra` and `load_extra` are the prefill's (see `prefill.ensure`
+    and `prefill.restore`)."""
     from repro_torch.core.dedup import FoldConfig, FoldPipeline
     config, units, dev = ctx["config"], ctx["units"], ctx["device"]
 
     def make():
         return FoldPipeline(FoldConfig(**config["fold"]), device=dev)
 
+    if step is None:
+        def step(pipe, tokens, lengths):
+            return pipe.process_batch(tokens, lengths)
+
     entry = prefill_mod.ensure(config, ctx["mix"], ctx["cache"], make,
-                               ctx["log"])
+                               ctx["log"], step=step, save_extra=save_extra)
     t0 = clock()
     pipe = make()
-    prefill_keep = prefill_mod.restore(pipe, entry)
+    prefill_keep = prefill_mod.restore(pipe, entry, load_extra)
     ctx["on_ready"](pipe)
     t1 = clock()
     # (tokens, lengths, verdicts) in the order the program saw them
     batches: list = []
     _, tokens, lengths = units.get()
-    keep, _ = pipe.process_batch(tokens, lengths)
+    keep, _ = step(pipe, tokens, lengths)
     batches.append((tokens, lengths, keep))
-    _window_start(ctx)
+    window_start(ctx)
     t0 = clock()
     setup_s = t0 - ctx["t_start"]
-    _log_setup(ctx, setup_s, t1, t0)
+    log_setup(ctx, setup_s, t1, t0)
     units.waited_s = 0.0
     end = t0 + ctx["seconds"]
     stages, done = [], []
     while clock() < end:
         _, tokens, lengths = units.get()
-        keep, stats = pipe.process_batch(tokens, lengths)
+        keep, stats = step(pipe, tokens, lengths)
         done.append(clock())
         stages.append(stats)
         batches.append((tokens, lengths, keep))
+    if done:
+        each = np.diff([t0, *done])
+        ctx["log"](f"the window's {len(done)} batches took, in s: median "
+                   f"{np.median(each):.4f}, 90th percentile "
+                   f"{np.quantile(each, 0.9):.4f}, longest {each.max():.4f}")
     rec = {"setup_s": setup_s, "window_start": t0, "done": done,
            "docs": [len(b[1]) for b in batches[1:]], "stages": stages,
            "queue_wait_s": units.waited_s}
-    _window_end(ctx, rec)
+    window_end(ctx, rec)
     if ctx["trace"]:
         todo = [units.get() for _ in range(ctx["trace_batches"])]
         n = pipe.cfg.shingle_n
 
         def traced():
-            return [pipe.process_batch(t, ln)[0] for _, t, ln in todo]
+            return [step(pipe, t, ln)[0] for _, t, ln in todo]
 
         keeps, events, window_s = trace_mod.capture(traced, ctx["trace_path"],
                                                   dev)
@@ -134,8 +144,8 @@ def drive_pipeline(ctx: dict) -> dict:
     return rec
 
 
-def _open_loop(svc, units: Units, first, base: float, until: float,
-               late_s: float, state: dict, log: Callable) -> tuple:
+def open_loop(svc, units: Units, first, base: float, until: float,
+              late_s: float, state: dict, log: Callable) -> tuple:
     """Submit each request at base + its arrival (or as soon after as the
     caller is free), arrivals below `until`, and poll until the last one is
     dispatched (then flush) or `late_s` has passed since base + until.
@@ -164,97 +174,3 @@ def _open_loop(svc, units: Units, first, base: float, until: float,
             return reqs, unit
         nxt = base + unit[1] if not drained else now + 0.0005
         time.sleep(min(0.0005, max(0.0, nxt - clock())))
-
-
-def drive_service(ctx: dict) -> dict:
-    from repro_torch.core.dedup import FoldConfig, FoldPipeline
-    from repro_torch.service import DedupService, ServiceConfig
-    config, units, dev = ctx["config"], ctx["units"], ctx["device"]
-    fold = FoldConfig(**config["fold"])
-
-    def make():
-        return FoldPipeline(fold, device=dev)
-
-    entry = prefill_mod.ensure(config, ctx["mix"], ctx["cache"], make,
-                               ctx["log"])
-    t0 = clock()
-    svc = DedupService(ServiceConfig(fold=fold, device=str(dev),
-                                     **config.get("service", {})))
-    prefill_keep = prefill_mod.restore(svc.pipeline, entry)
-    ctx["on_ready"](svc.pipeline)
-    t1 = clock()
-    state: dict = {"sent": [], "done": {}, "micro": []}
-
-    def hook(out):
-        t = clock()
-        mb = out.batch
-        ids = mb.doc_ids[mb.valid]
-        for d in ids:
-            state["done"][int(d)] = t
-        state["micro"].append({"t": t, "ids": ids.copy(),
-                               "keep": out.keep[mb.valid].copy(),
-                               "wall_s": out.wall_s,
-                               "n_valid": int(mb.n_docs),
-                               "rows": int(mb.tokens.shape[0])})
-
-    svc.outcome_hooks.append(hook)
-    _, tokens, lengths = units.get()
-    ticket = svc.submit(tokens, lengths)
-    state["sent"].append((ticket.start, tokens, lengths))
-    svc.flush()
-    n_warm = len(state["micro"])
-    first = units.get()
-    _window_start(ctx)
-    t0 = clock()
-    setup_s = t0 - ctx["t_start"]
-    _log_setup(ctx, setup_s, t1, t0)
-    units.waited_s = 0.0
-    seconds = ctx["seconds"]
-    reqs, nxt = _open_loop(svc, units, first, t0, seconds, ctx["late_s"],
-                           state, ctx["log"])
-    n_window = len(state["micro"])
-    rec = {"setup_s": setup_s, "window_start": t0,
-           "queue_wait_s": units.waited_s}
-    _window_end(ctx, rec)
-    if ctx["trace"]:
-        def traced():
-            base = clock() - seconds
-            return _open_loop(svc, units, nxt, base, seconds
-                              + ctx["trace_seconds"], ctx["late_s"], state,
-                              ctx["log"])
-
-        _, events, window_s = trace_mod.capture(traced, ctx["trace_path"],
-                                                  dev)
-        rec["trace"] = trace_mod.reduce(events, window_s)
-        rec["trace"]["units"] = len(state["micro"]) - n_window
-    svc.flush()
-    lat, failed, queue = [], 0, {}
-    for arrival, a, b in reqs:
-        ts = [state["done"].get(d) for d in range(a, b)]
-        if any(t is None for t in ts):
-            failed += 1
-            continue
-        lat.append(max(ts) - arrival)
-        for d in range(a, b):
-            queue[d] = arrival
-    micro = state["micro"][n_warm:n_window]
-    for m in micro:
-        m["queue_s"] = [m["t"] - m["wall_s"] - queue[int(d)]
-                        for d in m["ids"] if int(d) in queue]
-    rec.update(latency_s=lat, micro=micro, requests=len(reqs),
-               docs=[m["n_valid"] for m in micro], attempted=len(reqs),
-               failed=failed)
-    rec["prefill_keep"] = prefill_keep
-    docs = {start + i: d for start, t, ln in state["sent"]
-            for i, d in enumerate(unpad(t, ln))}
-    rec["batches"] = [([docs[int(d)] for d in m["ids"]], m["keep"])
-                      for m in state["micro"]]
-    rec["first_judged"] = n_warm
-    rec["index_count"] = svc.pipeline.inserted
-    submitted = set(docs)
-    seen = {int(d) for m in state["micro"] for d in m["ids"]}
-    rec["missing_docs"] = len(submitted - seen)
-    return rec
-
-
-DRIVERS = {"pipeline": drive_pipeline, "service": drive_service}

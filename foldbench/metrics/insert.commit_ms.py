@@ -1,6 +1,7 @@
-"""insert.commit_ms: the insert's sequential commit, the forward rows and
-one back-link per admitted row and level (`hnsw_insert_batch`'s span
-`insert.commit`), mean over the window's batches."""
+"""insert.commit_ms: the insert's commit, `_commit_batch` (the plan made on
+the host from one copy of the batch's arrays, the forward rows, and every
+back-link in one launch of the `link_back` kernel), `hnsw_insert_batch`'s
+span `insert.commit`, mean over the window's batches."""
 
 from foldbench.metrics import _spans
 

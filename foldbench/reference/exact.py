@@ -18,16 +18,25 @@ counts stay below 2**24; a bitmap has at most H = 112 bits set.
 
 `judge` holds the system's verdicts against the guarantees of the
 configuration and the exact pipeline's verdicts (see its docstring).
+`compare` is the entry point the benchmark calls: the whole judgement of a
+run, the control's with it. `truth` is what a sound program gives, which
+the control's test judges beside the control.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from foldbench.reference.signatures import batch_signatures
+
 __all__ = ["ExactIndex", "greedy_leader", "batch_sims", "index_sims",
-           "exact_pipeline", "judge"]
+           "exact_pipeline", "judge", "CONTROL_LANE_BITS", "compare",
+           "truth"]
 
 _CHUNK = 16384
+# the control: the exact pipeline on MinHash lanes of 16 bits, the integer
+# precision below the 32-bit lanes the configurations state
+CONTROL_LANE_BITS = 16
 
 
 def _px(inter: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor):
@@ -163,3 +172,39 @@ def judge(batches: list, verdicts: list, first: int, tau: float, *,
     out["recall"] = (out["caught"] / out["exact_dups"] if out["exact_dups"]
                      else 1.0)
     return out
+
+
+def compare(docs: list, verdicts: list, first: int, fold: dict,
+            config: dict, rec: dict, *, device,
+            control: bool = False) -> tuple[dict, dict | None]:
+    """The judgement of one run: the documents and the program's verdicts
+    per batch (None where none came), the index of the first judged batch,
+    the `fold` settings, the configuration and the driver's record in;
+    every compared count out (`judge`'s, with `missing` adding the
+    documents the driver saw go unanswered, and `index_gap`: the program's
+    live count, `rec["index_count"]`, against the documents it admitted,
+    since nothing leaves an append-only index). With `control`, also the
+    counts of the control put in the program's place, else None."""
+    batches = batch_signatures(docs, fold, device)
+    truth = exact_pipeline(batches, fold["tau"])
+    judged = judge(batches, verdicts, first, fold["tau"], exact=truth)
+    judged["missing"] += rec.get("missing_docs", 0)
+    admitted = sum(int(np.asarray(v, bool).sum()) for v in verdicts)
+    judged["index_gap"] = abs(admitted - rec["index_count"])
+    if not control:
+        return judged, None
+    low = batch_signatures(docs, fold, device, CONTROL_LANE_BITS)
+    counts = judge(batches, exact_pipeline(low, fold["tau"])[0], first,
+                   fold["tau"], exact=truth)
+    counts["index_gap"] = 0       # the reference's index holds what it admits
+    return judged, counts
+
+
+def truth(docs: list, fold: dict, config: dict, *,
+          device) -> tuple[list, int]:
+    """What a sound program gives on `docs` (a list of documents per
+    batch): the exact online pipeline's verdicts per batch, and the live
+    count its index ends with, every document admitted."""
+    keeps = exact_pipeline(batch_signatures(docs, fold, device),
+                           fold["tau"])[0]
+    return keeps, sum(int(k.sum()) for k in keeps)

@@ -17,8 +17,10 @@ from __future__ import annotations
 
 import torch
 
+from foldbench.traffic.generate import pad
+
 __all__ = ["M32", "hash_seeds", "shingle_hashes", "minhash", "bitmap_bits",
-           "signatures"]
+           "signatures", "batch_signatures"]
 
 M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -102,3 +104,25 @@ def signatures(tokens, lengths, *, num_hashes: int, shingle_n: int, T: int,
                     hash_seeds(num_hashes, seed, device), lane_bits)
     bits = bitmap_bits(lanes, T)
     return bits, bits.sum(1).to(torch.int64)
+
+
+def batch_signatures(docs: list, fold: dict, device,
+                     lane_bits: int = 32) -> list:
+    """(bits, popcounts) per batch of `docs` (a list of documents per
+    batch), worked out in blocks of 512 documents under `fold`'s widths."""
+    flat = [d for batch in docs for d in batch]
+    bits, pcs = [], []
+    for s in range(0, len(flat), 512):
+        b, p = signatures(*pad(flat[s:s + 512]),
+                          num_hashes=fold["num_hashes"],
+                          shingle_n=fold["shingle_n"], T=fold["T"],
+                          seed=fold["seed"], device=device,
+                          lane_bits=lane_bits)
+        bits.append(b)
+        pcs.append(p)
+    bits, pcs = torch.cat(bits), torch.cat(pcs)
+    out, at = [], 0
+    for batch in docs:
+        out.append((bits[at:at + len(batch)], pcs[at:at + len(batch)]))
+        at += len(batch)
+    return out

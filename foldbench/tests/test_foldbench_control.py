@@ -1,6 +1,8 @@
-"""The control comes out not correct: the exact pipeline on 16-bit MinHash
-lanes (the integer precision below the configurations' 32-bit lanes), put
-in the program's place and judged as the program is, on each cell's own
+"""The control comes out not correct: the control of each cell's own
+reference (for `exact`, the exact pipeline on 16-bit MinHash lanes, the
+integer precision below the configurations' 32-bit lanes), put in the
+program's place and judged as the program is, beside what a sound program
+gives (the reference's `truth`), on each cell's own
 traffic at a size a test run holds. On the card the same control is run at
 each cell's own size by `foldbench/control.py`."""
 from __future__ import annotations
@@ -8,7 +10,6 @@ from __future__ import annotations
 import pytest
 
 from foldbench import bench
-from foldbench.reference import exact
 from foldbench.traffic.generate import Stream, load_mix, prefill_batches
 
 CELLS = [c["name"] for c in bench.load_spec()["workloads"]]
@@ -29,13 +30,12 @@ def test_control_is_not_correct(cell):
     stream = Stream(mix, PREFILL, 2**31 + 77)
     docs += [stream.docs(batch) for _ in range(WINDOW_DOCS // batch)]
     fold = config["fold"]
-    ref = bench._reference_batches(docs, fold, "cpu")
-    truth = exact.exact_pipeline(ref, fold["tau"])
-    sound = exact.judge(ref, truth[0], first, fold["tau"], exact=truth)
-    low = bench._reference_batches(docs, fold, "cpu", bench.CONTROL_LANE_BITS)
-    ctrl = exact.judge(ref, exact.exact_pipeline(low, fold["tau"])[0], first,
-                       fold["tau"], exact=truth)
-    for judged in (sound, ctrl):
-        judged["index_gap"] = 0
-    assert bench._passes(bench._checks(sound, config["limits"]))
+    reference = bench.load_piece("reference",
+                                 config.get("reference", "exact"))
+    verdicts, live = reference.truth(docs, fold, config, device="cpu")
+    sound, ctrl = reference.compare(docs, verdicts, first, fold, config,
+                                    {"index_count": live}, device="cpu",
+                                    control=True)
+    assert bench._passes(bench._checks(sound, config["limits"])), sound
+    assert ctrl is not None
     assert not bench._passes(bench._checks(ctrl, config["limits"])), ctrl

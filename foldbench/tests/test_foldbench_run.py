@@ -65,8 +65,10 @@ def test_fault_in_the_timed_path_is_not_correct(cell, fault, cache):
 @pytest.mark.parametrize("cell", UNLINKED_CELLS)
 def test_unlinked_insert_is_not_correct(cell, cache):
     # long enough that most of the window's duplicates are of documents
-    # admitted after the fault was planted, on a loaded machine too
-    r = tiny_run(cell, cache, seconds=6.0,
+    # admitted after the fault was planted, on a loaded machine too: the
+    # fault shows from the window's 8th batch on, and beside two busy
+    # processes a batch takes over a second
+    r = tiny_run(cell, cache, seconds=12.0,
                  on_ready=FAULTS["unlinked_insert"])
     assert not r["correct"], r["checks"]
     assert r["checks"]["recall"]["value"] < r["checks"]["recall"]["min"]

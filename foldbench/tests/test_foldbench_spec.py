@@ -95,7 +95,9 @@ def test_every_cell_reports_what_it_must():
 def test_every_piece_is_found_by_name():
     for c in SPEC["configs"]:
         cfg = bench.load_config(c["name"])
-        assert cfg["driver"] in ("pipeline", "service")
+        assert (HERE / "drivers" / f"{cfg['driver']}.py").is_file()
+        assert (HERE / "reference"
+                / f"{cfg.get('reference', 'exact')}.py").is_file()
         assert {"fold", "prefill", "limits", "guarantees",
                 "source"} <= set(cfg)
     for w in SPEC["workloads"]:
