@@ -979,6 +979,8 @@ def hnsw_delete(cfg: HNSWConfig, state: HNSWState, ids
     safe = torch.clamp(ids, 0, cfg.capacity - 1).to(torch.int64)
     valid = ((ids >= 0) & (ids < cfg.capacity)
              & (state.node_level[safe] >= 0) & ~state.dead[safe])
+    spans.sync()        # the boolean mask's count
+    spans.sync()        # a Python scalar stored through an index tensor
     state.dead[safe[valid]] = True
     return state, valid.sum(dtype=torch.int32)
 
@@ -991,8 +993,7 @@ def needs_repair(state: HNSWState, live: torch.Tensor, lev: int
     rows = state.neighbors[lev]
     nb_dead = (state.dead[torch.clamp(rows, min=0).to(torch.int64)]
                & (rows >= 0)).any(1)
-    return torch.nonzero(live & (state.node_level >= lev) & nb_dead
-                         ).squeeze(1)
+    return spans.nonzero(live & (state.node_level >= lev) & nb_dead)
 
 
 def _repair_rows(cfg: HNSWConfig, state: HNSWState, live, lev: int,
@@ -1037,21 +1038,42 @@ def hnsw_compact(cfg: HNSWConfig, state: HNSWState
     The reference scores the candidate pool of every node at every level
     and keeps the old row where nothing needs repair; only the rows that
     `needs_repair` selects are scored here, in chunks bounding the
-    (chunk, K, W) XOR temporary: the same state."""
+    (chunk, K, W) XOR temporary: the same state.
+
+    Under an open record of `repro_torch.spans`, the repair is the span
+    `compact.repair` and the rest the span `compact.unlink`, each ending in
+    a device sync; the rows rebuilt, summed over levels, are added as
+    `rows` to the span the call runs under."""
     dev = state.vectors.device
     dead0 = state.dead.clone()
     live = (state.node_level >= 0) & ~dead0
     K = cfg.M0 * (1 + cfg.M0)
     chunk = max(1, _PAIR_WORDS // (K * cfg.words))
-    for lev in range(cfg.max_level + 1):
-        m_l = cfg.M0 if lev == 0 else cfg.M
-        nodes = needs_repair(state, live, lev)
-        # each level's repair reads only that level's rows: computing all
-        # of them before writing keeps every read on the old rows
-        new = [_repair_rows(cfg, state, live, lev, m_l, nodes[s:s + chunk])
-               for s in range(0, nodes.shape[0], chunk)]
-        if new:
-            state.neighbors[lev, nodes] = torch.cat(new)
+    rebuilt = 0
+    with spans.span("compact.repair") as sp:
+        for lev in range(cfg.max_level + 1):
+            m_l = cfg.M0 if lev == 0 else cfg.M
+            nodes = needs_repair(state, live, lev)
+            rebuilt += nodes.shape[0]
+            # each level's repair reads only that level's rows: computing
+            # all of them before writing keeps every read on the old rows
+            new = [_repair_rows(cfg, state, live, lev, m_l,
+                                nodes[s:s + chunk])
+                   for s in range(0, nodes.shape[0], chunk)]
+            if new:
+                state.neighbors[lev, nodes] = torch.cat(new)
+        sp.ready(state.neighbors)
+    spans.add(rows=rebuilt)
+    with spans.span("compact.unlink") as sp:
+        state, n_dead = _unlink_dead(cfg, state, dead0, live, dev)
+        sp.ready(state.count)
+    return state, n_dead
+
+
+def _unlink_dead(cfg: HNSWConfig, state: HNSWState, dead0, live, dev
+                 ) -> tuple[HNSWState, torch.Tensor]:
+    """`hnsw_compact`'s second half: clear the dead rows, drop every
+    reference to them, and re-elect the entry, top level and count."""
     # unlink the dead: clear their rows and drop any stale reference
     for lev in range(cfg.max_level + 1):
         nb = state.neighbors[lev]
@@ -1064,6 +1086,8 @@ def hnsw_compact(cfg: HNSWConfig, state: HNSWState
     lv = torch.where(live, state.node_level, torch.full_like(ar, -1))
     top = lv.max()
     esafe = torch.clamp(state.entry, 0, cfg.capacity - 1).to(torch.int64)
+    spans.sync()        # each index by the 0-d `esafe` reads it on the host
+    spans.sync()
     keep_entry = ((state.entry >= 0) & live[esafe]
                   & (state.node_level[esafe] >= top))
     first_top = torch.where(lv == top, ar, cfg.capacity).min()

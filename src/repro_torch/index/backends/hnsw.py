@@ -155,8 +155,8 @@ class _HNSWLifecycle(DedupBackend):
         pad = np.full(D, -1, np.int32)
         pad[:len(ids)] = ids
         self.state, n_dev = hnsw_delete(
-            self.hnsw_cfg, self.state, torch.from_numpy(pad).to(self.device))
-        n = int(n_dev)
+            self.hnsw_cfg, self.state, spans.upload(pad, self.device))
+        n = spans.to_int(n_dev)
         self._n_deleted += n
         self._n_dead += n
         return n
@@ -164,19 +164,22 @@ class _HNSWLifecycle(DedupBackend):
     def _rederive_free(self) -> int:  # foldlint: cold-path
         """Host free list = every unlinked slot below the high-water mark,
         re-derived from the device state. Returns the count mark."""
-        count = int(self.state.count)
-        node_level = self.state.node_level[:count].cpu().numpy()
+        count = spans.to_int(self.state.count)
+        node_level = spans.to_host(self.state.node_level[:count])
         self._free = [int(i) for i in np.flatnonzero(node_level < 0)]
         return count
 
     def compact(self) -> dict:  # foldlint: cold-path
         """Repair adjacency around tombstones, unlink them, and re-derive
         the host free list (host sync: callers schedule it off the hot
-        path)."""
+        path). Under an open record of `repro_torch.spans`, the free list's
+        re-derivation is the span `compact.free` (`hnsw_compact` holds
+        `compact.repair` and `compact.unlink`)."""
         t0 = time.perf_counter()
         self.state, n_dev = hnsw_compact(self.hnsw_cfg, self.state)
-        reclaimed = int(n_dev)
-        count = self._rederive_free()
+        reclaimed = spans.to_int(n_dev)
+        with spans.span("compact.free"):
+            count = self._rederive_free()
         self._n_dead = 0
         self._count_hw = count
         self._known_count = count               # re-anchor overflow guard
@@ -218,8 +221,9 @@ class _HNSWLifecycle(DedupBackend):
 
     def _record_insert(self, sig, keep, free_host) -> None:
         """Slot-dependent bookkeeping for one insert: the exact-verify sig
-        store scatter and the track_slots log; sync-free when neither is
-        active."""
+        store scatter and the track_slots log, and the count of admitted
+        rows placed in reclaimed slots (`reused`, on the open span of
+        `repro_torch.spans`); sync-free when neither is active."""
         sig_store = getattr(self, "_sig_store", None)
         if sig_store is None and not self.track_slots:
             self._count_hw = None       # host count mirror goes stale
@@ -233,6 +237,8 @@ class _HNSWLifecycle(DedupBackend):
             q = list(getattr(self, "_slots_q", []))
             q.append(slots)
             self._slots_q = q
+        # the admitted rows placed in reclaimed slots
+        spans.add(reused=min(len(order), len(free_host)))
 
     # -- hooks ---------------------------------------------------------------
     def _after_grow(self, new_capacity: int) -> None:

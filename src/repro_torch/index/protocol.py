@@ -126,6 +126,8 @@ class DedupBackend(Protocol):
                               (default 0.0); host-cheap, no device sync
       compact() -> dict       reclaim tombstones (default {"reclaimed": 0})
       pop_slot_log(n=None)    drain up to n pending per-insert slot logs
+      pending_slot_log()      the pending slot logs, oldest first, left
+                              in place (a lifecycle ledger's snapshot)
 
     save/restore round-trip deletion state: tombstones and free slots
     survive a snapshot.
@@ -186,3 +188,7 @@ class DedupBackend(Protocol):
         out, rest = list(q[:n]), list(q[n:])
         setattr(self, "_slots_q", rest)
         return out
+
+    def pending_slot_log(self) -> list:
+        """The per-insert slot logs not yet drained, oldest first."""
+        return list(getattr(self, "_slots_q", None) or [])

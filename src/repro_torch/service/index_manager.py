@@ -17,6 +17,12 @@ snapshot's own step is left out of the listing the rotation works on,
 whether or not its background write has committed yet, so the rotation
 always lands on `max_snapshots` committed steps.
 
+Where a `LifecycleManager` is attached (`lifecycle`, which
+`DedupService` sets when its lifecycle is on), each snapshot carries its
+ledger beside the step (`LifecycleManager.save`), rotated with the step,
+and `restore_latest` loads it back, so that the documents admitted before
+the snapshot expire when they would have.
+
 The sharded backend is re-exported here, as in the reference.
 """
 from __future__ import annotations
@@ -57,6 +63,8 @@ class IndexManager:
         # last step this manager wrote (0 = none yet this process); the
         # cluster writer publishes manifests only for steps it took itself
         self.last_step = 0
+        # the document lifecycle whose ledger goes with each snapshot
+        self.lifecycle = None
 
     # ------------------------------------------------------------- growth
     def note_dispatched(self, n_docs: int):
@@ -124,6 +132,8 @@ class IndexManager:
         self._snap_step += 1
         self.pipe.save(self.snapshot_dir, self._snap_step,
                        async_write=not sync)
+        if self.lifecycle is not None:
+            self.lifecycle.save(self.snapshot_dir, self._snap_step)
         self.snapshots_taken += 1
         # rotate the OTHER committed steps down to max_snapshots - 1: this
         # step is left out of the listing whether or not an async write of
@@ -135,13 +145,15 @@ class IndexManager:
         for old in (steps[:-keep] if keep > 0 else steps):
             shutil.rmtree(os.path.join(self.snapshot_dir,
                                        f"step_{old:08d}"))
+        # drop the sidecars of rotated-away steps (the current step's
+        # exists even while its array write is still in flight, so keep it
+        # explicitly)
+        kept = set(steps[-keep:] if keep > 0 else [])
+        kept.add(self._snap_step)
         if getattr(self.pipe, "exact", None) is not None:
-            # drop exact-filter sidecars for rotated-away steps (the
-            # current step's sidecar exists even while its array write is
-            # still in flight, so keep it explicitly)
-            kept = set(steps[-keep:] if keep > 0 else [])
-            kept.add(self._snap_step)
             self.pipe.exact.prune_sidecars(self.snapshot_dir, kept)
+        if self.lifecycle is not None:
+            self.lifecycle.prune(self.snapshot_dir, kept)
         self.last_step = self._snap_step
         return self._snap_step
 
@@ -163,6 +175,8 @@ class IndexManager:
         if step is None:
             return None
         self.pipe.restore(self.snapshot_dir, step)
+        if self.lifecycle is not None:
+            self.lifecycle.load(self.snapshot_dir, step)
         self._snap_step = step
         self._known_count = self.pipe.inserted
         self._dispatched = 0

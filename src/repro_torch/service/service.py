@@ -183,6 +183,9 @@ class DedupService:
                 self.pipeline, ttl_steps=cfg.ttl_steps,
                 max_live_docs=cfg.max_live_docs,
                 compact_watermark=cfg.compact_watermark)
+            if self.index_manager is not None:
+                # its ledger goes with every snapshot
+                self.index_manager.lifecycle = self.lifecycle
         else:
             self.lifecycle = None            # documents never leave
         self.batcher = MicroBatcher(
@@ -359,7 +362,8 @@ class DedupService:
         if self.index_manager is not None:
             self.index_manager.after_batch()
         if self.lifecycle is not None:
-            n = self.lifecycle.after_batch()
+            # its spans join the micro-batch's record, where it was sampled
+            n = self.lifecycle.after_batch(record=out.stage_times)
             if n:
                 self.metrics.inc("docs_deleted", n)
         for hook in self.outcome_hooks:

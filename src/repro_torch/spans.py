@@ -9,7 +9,13 @@ runs the split-stage path. Below an open record,
   `t_signature`, `t_in_batch`, `t_search`, `t_insert` are kept);
 - `add(key=n)` adds a count of the work done to the innermost span's
   entry (the insert's commit adds its back-links and their groups, as
-  `links` and `groups`);
+  `links` and `groups`, the insert the rows it placed in reclaimed slots,
+  as `reused`);
+- a record closed may be opened again: `repro_torch.lifecycle`'s expiry
+  and compaction run after `process_batch` has returned, and their spans
+  (`lifecycle.expire`, `lifecycle.compact` and, inside the latter,
+  `compact.repair`, `compact.unlink` and `compact.free`) join the spans of
+  the batch after which they ran;
 - every host read of device data on the path (a `.cpu()`, a `bool()` or
   `int()` of a tensor, a `torch.nonzero`, an upload of a host array) goes
   through `sync()`, which adds one to the `syncs` of the innermost open
@@ -62,7 +68,9 @@ class _Record:
 
     def __init__(self, stats: dict, attach: bool):
         self.stats = stats
-        self.spans: dict[str, dict] = {}
+        # a record opened again (the lifecycle's spans after its batch)
+        # adds to the spans it holds
+        self.spans: dict[str, dict] = stats.get(KEY, {})
         self.stack: list[dict] = []
         self.attach = attach
 

@@ -647,6 +647,15 @@ def test_cuda_sync_counter_equals_sync_debug_mode(cuda, call, monkeypatch):
                 hnsw_insert_batch(be.hnsw_cfg, be.state, sig.bitmaps,
                                   sig.pcs, levels, mask, seed_ids=ids)
 
+    _assert_syncs_counted(cuda, monkeypatch, run, stats)
+
+
+def _assert_syncs_counted(cuda, monkeypatch, run, stats,
+                          under=lambda name: True) -> None:
+    """`run()` makes, under the spans of `stats` that `under(name)` picks,
+    as many counted syncs as sync-debug mode reports, less the stage
+    timers' own waits."""
+    from repro_torch import spans
     ready, sites = [], []
     sync, wait = spans.sync, spans.ready
 
@@ -675,13 +684,50 @@ def test_cuda_sync_counter_equals_sync_debug_mode(cuda, call, monkeypatch):
     monkeypatch.setattr(spans, "ready", timed)
     torch.cuda.synchronize()
     per_wait = len(debug_mode(lambda: torch.cuda.synchronize(cuda)))
+    before = sum(e["syncs"] for name, e in stats.get(spans.KEY, {}).items()
+                 if under(name))
     caught = debug_mode(run)
-    n = sum(e["syncs"] for e in stats[spans.KEY].values())
+    n = sum(e["syncs"] for name, e in stats[spans.KEY].items()
+            if under(name)) - before
     assert n == len(sites) > 0
     assert len(caught) - per_wait * len(ready) == n, (
         f"sync-debug sites {collections.Counter(_where(w) for w in caught)}; "
         f"counted sites {collections.Counter(sites)}; timer waits "
         f"{len(ready)}, each {per_wait} sync-debug syncs")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", ["expire", "compact"])
+def test_cuda_lifecycle_sync_counter_equals_sync_debug_mode(cuda, call,
+                                                            monkeypatch):
+    """The lifecycle's spans (`lifecycle.expire`; `lifecycle.compact` and
+    its `compact.repair`, `compact.unlink`, `compact.free`) count exactly
+    the synchronizations sync-debug mode reports for one expiry and for
+    one compaction, each run on the stats of the batch after which it
+    runs."""
+    from repro_torch import spans
+    from repro_torch.core.dedup import FoldConfig, FoldPipeline
+    from repro_torch.lifecycle import LifecycleManager
+    pipe = FoldPipeline(FoldConfig(capacity=4096, M=8, M0=16,
+                                   ef_construction=32, ef_search=32),
+                        device=cuda)
+    mgr = LifecycleManager(pipe, ttl_steps=2, compact_watermark=2.0)
+    batches = _cc_batches(5, 96)
+    for tok, ln in batches[:4]:
+        pipe.process_batch(tok, ln)
+        mgr.after_batch()
+    assert pipe.dead_fraction > 0
+    stats = pipe.process_batch(*batches[4])[1]
+    if call == "expire":
+        def run():
+            assert mgr.after_batch(record=stats) > 0
+    else:
+        def run():
+            assert mgr.compact(record=stats)["reclaimed"] > 0
+    _assert_syncs_counted(
+        cuda, monkeypatch, run, stats,
+        lambda name: name.startswith(("lifecycle.", "compact.")))
+    assert ("lifecycle.compact" in stats[spans.KEY]) == (call == "compact")
 
 
 def _where(w) -> str:
